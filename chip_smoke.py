@@ -1,0 +1,574 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, each printing one JSON line:
+
+  1. device  — the card's name and power limit (``nvidia-smi``);
+  2. build   — compile every CUDA kernel of the main path from
+               ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
+               all started together);
+  3. kernels — hold each kernel against its plain PyTorch version on the
+               card at the main path's shapes and time kernel, plain
+               version and one PyTorch library call;
+  4. main    — ingest the 500,000-row ``flights`` table with the paper's
+               defaults (N_s = 100,000, alpha = 0.001, M = 1%), answer 256
+               generated queries one at a time and one 64-query serving wave
+               through ``FastPath.batch``, check every answer against the
+               host-NumPy engine and count the kernel launches of this run;
+  5. parity  — build a 60,000-row ``flights`` synopsis on the card and on
+               the CPU and require them equal field by field.
+
+Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
+the last line. Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero at once. The nvcc log goes to
+``chiprun_out/chip_smoke_build.log``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and fp32 without tensor
+# cores (the kernels keep fp32 IEEE; construction counts are fp32 adds).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# The TPU kernels these CUDA kernels replace (function reaching pallas_call).
+TPU_KERNELS = {
+    "batched_weightings": "src/repro/kernels/weightings/weightings.py:61",
+    "fused_weightings": "src/repro/kernels/weightings/weightings.py:92",
+    "batched_hist2d": "src/repro/kernels/hist2d/hist2d.py:82",
+    "batched_subbin_hist": "src/repro/kernels/subbin/subbin.py:52",
+}
+SOURCES = {
+    "batched_weightings": "src/repro_torch/kernels/csrc/weightings.cu",
+    "fused_weightings": "src/repro_torch/kernels/csrc/weightings.cu",
+    "batched_hist2d": "src/repro_torch/kernels/csrc/flat_hist.cu",
+    "batched_subbin_hist": "src/repro_torch/kernels/csrc/flat_hist.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def wall_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean time per call of ``fn`` over ``reps`` warm back-to-back calls,
+    between two CUDA events: the device time, or the host's time to issue
+    the call when that is longer."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _is_device_work(e) -> bool:
+    """A kernel, memset or copy on the card (not a profiler annotation)."""
+    import torch
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("main."))
+
+
+def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device time per call of ``fn``: the summed durations of the kernels,
+    memsets and copies it puts on the card (``torch.profiler``), over
+    ``reps`` warm calls. Host overhead is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events() if _is_device_work(e))
+    return total_us / 1e3 / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------- phase 1
+
+
+def phase_device() -> dict:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+    info = {"phase": "device", "nvidia_smi": card,
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    emit(info)
+    return info
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import loader
+    seconds, logs = loader.build()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    for name in loader.EXPORTS:
+        loader.library(name)
+    emit({"phase": "build", "seconds": seconds,
+          "libraries": sorted(loader.EXPORTS)})
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def _hist_case(kind: str, k2: int, wdtype, rng) -> dict:
+    """One K3/K4 comparison at P = 8 pairs x N = 100,000 sampled rows."""
+    import torch
+    from repro_torch.kernels.hist2d import batched_hist2d
+    from repro_torch.kernels.hist2d.ref import batched_hist2d_ref
+    from repro_torch.kernels.subbin import batched_subbin_hist
+    from repro_torch.kernels.subbin.ref import batched_subbin_hist_ref
+    dev = torch.device("cuda")
+    p, n, s_max = 8, 100_000, 32
+    if kind == "batched_hist2d":
+        ka, kb = k2, k2
+        fn, ref = batched_hist2d, batched_hist2d_ref
+    else:
+        ka, kb = k2 * k2, s_max
+        fn, ref = batched_subbin_hist, batched_subbin_hist_ref
+    a = torch.as_tensor(rng.integers(0, ka, (p, n)), device=dev)
+    b = torch.as_tensor(rng.integers(0, kb, (p, n)), device=dev)
+    if wdtype == "f64_01":
+        w = torch.as_tensor((rng.random((p, n)) < 0.95).astype("float64"),
+                            device=dev)
+    else:
+        w = torch.as_tensor(rng.random((p, n)).astype("float32"), device=dev)
+    got = fn(a, b, w, ka, kb)
+    want = ref(a, b, w, ka, kb)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if wdtype == "f64_01":
+        ok = bool(torch.equal(got, want))
+        tol = "exact"
+    else:
+        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+        tol = "rtol 1e-5 atol 1e-6"
+    nbins = ka * kb
+    offs = torch.arange(p, device=dev)[:, None] * nbins
+    flat = (a * kb + b + offs).reshape(-1)
+    wf = w.reshape(-1)
+    out_bytes = p * nbins * w.element_size()
+    n_bytes = p * n * (a.element_size() + b.element_size()
+                       + w.element_size()) + out_bytes
+    bms, by = bound_ms(n_bytes, p * n)
+    return dict(_times(lambda: fn(a, b, w, ka, kb),
+                       lambda: ref(a, b, w, ka, kb),
+                       lambda: torch.bincount(flat, weights=wf,
+                                              minlength=p * nbins)),
+                name=kind, k2=k2, weights=wdtype, ok=ok, tolerance=tol,
+                max_abs_err=err, bound_ms=bms, bound_by=by)
+
+
+def _times(fn, ref, library) -> dict:
+    """Device ms per call of the kernel's wrapper, its plain version and the
+    library call, plus the wall ms per call of the first two."""
+    return {"ms": device_ms(fn), "plain_ms": device_ms(ref),
+            "library_ms": device_ms(library), "wall_ms": wall_ms(fn),
+            "plain_wall_ms": wall_ms(ref)}
+
+
+def _weightings_inputs(q: int, el: int, k2: int, k1: int, rng):
+    """Random K1/K2 inputs: dense counts, one-hot fold, random coverage."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    H = (rng.random((el, k2, k2)) * 10).astype(np.float32)
+    hx = H.sum(2) + 1.0
+    fold = np.zeros((el, k1, k2), np.float32)
+    for li in range(el):
+        fold[li, np.arange(k1), np.sort(rng.integers(0, k2, k1))] = 1.0
+    beta = rng.random((q, el, k2)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (H, beta, fold, hx))
+
+
+def _weightings_case(kind: str, H, beta, fold, hx, **labels) -> dict:
+    """One K1/K2 comparison; K2 (``fused_weightings``) takes ``beta[0]``."""
+    import torch
+    from repro_torch.kernels.weightings import (batched_weightings,
+                                                fused_weightings)
+    from repro_torch.kernels.weightings.ref import (batched_weightings_ref,
+                                                    fused_weightings_ref)
+    el, k2, _ = H.shape
+    q, k1 = beta.shape[0], fold.shape[1]
+    if kind == "fused_weightings":
+        q = 1
+        b1 = beta[0]
+
+        def fn():
+            return fused_weightings(H, b1, fold, hx)
+
+        def ref():
+            return fused_weightings_ref(H, b1, fold, hx)
+    else:
+        def fn():
+            return batched_weightings(H, beta, fold, hx)
+
+        def ref():
+            return batched_weightings_ref(H, beta, fold, hx)
+
+    def library():
+        v = torch.einsum("lab,qlb->qla", H, beta[:q])
+        p_row = torch.clamp(v / torch.clamp(hx, min=1e-30), 0.0, 1.0)
+        return torch.einsum("lka,qla->qlk", fold, p_row).prod(dim=1)
+
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+    # The fold is one-hot: count the products its non-zeros need.
+    nnz = int((fold != 0).sum())
+    n_bytes = 4 * (el * k2 * k2 + q * el * k2 + el * k1 * k2 + el * k2
+                   + q * k1)
+    n_ops = 2 * q * (el * k2 * k2 + nnz) + q * el * k1
+    bms, by = bound_ms(n_bytes, n_ops)
+    return dict(_times(fn, ref, library), name=kind, q=q, l=el, k2=k2,
+                k1=k1, ok=ok, tolerance="rtol 1e-5 atol 1e-6",
+                max_abs_err=float((got - want).abs().max()), bound_ms=bms,
+                bound_by=by, **labels)
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; the first case of each kernel
+    is its reported (main-path) shape."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 einsums
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    cases = []
+    for kind in ("batched_hist2d", "batched_subbin_hist"):
+        for k2 in (64, 256):
+            for wd in ("f64_01", "f32"):
+                cases.append(_hist_case(kind, k2, wd, rng))
+    for q, el in ((64, 1), (64, 3)):
+        args = _weightings_inputs(q, el, 256, 512, rng)
+        cases.append(_weightings_case("batched_weightings", *args))
+        cases.append(_weightings_case("fused_weightings", *args))
+    _check(cases, "kernels")
+    return cases
+
+
+def _check(cases, phase: str) -> None:
+    for c in cases:
+        emit(dict(c, phase=phase))
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{bad}")
+
+
+# --------------------------------------------------------------- phase 4
+
+
+def _close(a, b) -> bool:
+    import numpy as np
+    if a[0] is None or b[0] is None:
+        return a == b
+    return bool(np.allclose(a, b, rtol=1e-5, atol=1e-6))
+
+
+def _drive_main(fw, table, queries, wave_sql) -> dict:
+    """Ingest, answer ``queries`` one at a time, then serve ``wave_sql`` as
+    one fused wave; the launch counts are reset first and read last."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    span = torch.profiler.record_function
+    out = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with span("main.ingest"):
+        fw.ingest(table)
+        torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    out["single_ms"], out["answers"] = [], []
+    with span("main.queries"):
+        for sql in queries:
+            t = time.perf_counter()
+            out["answers"].append(fw.query(sql).as_tuple())
+            out["single_ms"].append((time.perf_counter() - t) * 1e3)
+    engine = out["engine"] = fw.engine
+    t = time.perf_counter()
+    plans = out["plans"] = [engine.plan_sql(s) for s in wave_sql]
+    out["plan_s"] = time.perf_counter() - t
+    agg_col = out["agg_col"] = plans[0].agg_col
+    t = time.perf_counter()
+    with span("main.wave"):
+        triples = fw.fastpath.batch(engine.ph, agg_col,
+                                    [p.tree for p in plans], engine.corrected)
+        if triples is None:
+            raise AssertionError("the serving wave was not batchable")
+        out["wave"] = [engine.execute_plan(p, weightings=w).as_tuple()
+                       for p, w in zip(plans, triples)]
+        torch.cuda.synchronize()
+    out["wave_s"] = time.perf_counter() - t
+    out["launches"] = launch_counts()
+    return out
+
+
+def phase_main(profile: bool = False) -> dict:
+    """The main path; with ``profile`` its run (ingest, queries, wave) is
+    traced by ``torch.profiler`` and summarized by ``_profile_report``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from repro_torch.aqp import datasets
+    from repro_torch.aqp.engine import AQPFramework
+    from repro_torch.aqp.exact import ExactEngine
+    from repro_torch.aqp.queries import (AGGS_INITIAL, generate_queries,
+                                         relative_error)
+    from repro_torch.core.fastpath import FastPath
+    from repro_torch.core.query import QueryEngine
+    from repro_torch.core.types import BuildParams
+
+    table = datasets.flights()
+    queries = generate_queries(table, 256, seed=0, aggs=AGGS_INITIAL,
+                               max_preds=3)
+    rng = np.random.default_rng(0)
+    wave_sql = [f"SELECT AVG(arr_delay) FROM t WHERE distance > "
+                f"{int(a)} AND dep_delay < {int(b)}"
+                for a, b in zip(rng.uniform(200, 2000, 64),
+                                rng.uniform(-2, 40, 64))]
+    exact = ExactEngine(table)
+    truth = [exact.query(s) for s in queries + wave_sql]
+    fw = AQPFramework(BuildParams(), use_compression=True,
+                      fastpath=FastPath(), device="cuda")
+
+    # The main path's run: counters at 0 just before, read just after.
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    with prof:
+        run = _drive_main(fw, table, queries, wave_sql)
+    if profile:
+        _profile_report(prof)
+    engine, plans, agg_col = run["engine"], run["plans"], run["agg_col"]
+    answers, wave, launches = run["answers"], run["wave"], run["launches"]
+    single_ms = run["single_ms"]
+
+    # K1 and K2 once more on the main path's own inputs (the wave's stacks
+    # and coverage vectors) against their plain versions; these launches
+    # come after the counts were read.
+    fp = fw.fastpath
+    split = [fp._split_leaves(engine.ph, agg_col, p.tree) for p in plans]
+    pair_cols = tuple(lf.col for lf in split[0][1])
+    hs, fs, hxs, _k1, k2max = fp._get_stack(engine.ph, agg_col, pair_cols)
+    betas = fp._pair_betas_batch(engine.ph, agg_col,
+                                 [pls for _, pls in split], k2max)
+    betas = torch.as_tensor(betas.reshape(-1, len(pair_cols), k2max),
+                            device=hs.device)
+    main_cases = [_weightings_case(kind, hs, betas, fs, hxs, shape="main")
+                  for kind in ("batched_weightings", "fused_weightings")]
+    _check(main_cases, "main_kernels")
+
+    host = QueryEngine(fw.synopsis)
+    mismatched = []
+    for sql, got in zip(queries + wave_sql, answers + wave):
+        want = host.query(sql).as_tuple()
+        if not _close(got, want):
+            mismatched.append((sql, got, want))
+    rel = [relative_error(a[0], tr)
+           for a, tr in zip(answers + wave, truth)]
+    n_and = sum(" OR " not in s for s in queries)
+    out = {
+        "phase": "main", "rows": len(table["distance"]),
+        "columns": len(table), "pairs": len(fw.synopsis.pairs),
+        "ingest_s": run["ingest_s"], "timings": {
+            k: v for k, v in fw.timings.items()},
+        "queries": len(queries), "and_queries": n_and,
+        "single_p50_ms": float(np.percentile(single_ms, 50)),
+        "single_p99_ms": float(np.percentile(single_ms, 99)),
+        "wave_queries": len(wave_sql), "wave_plan_s": run["plan_s"],
+        "wave_s": run["wave_s"], "wave_qps": len(wave_sql) / run["wave_s"],
+        "median_rel_err_pct": float(np.median(rel[:len(queries)])),
+        "wave_median_rel_err_pct": float(np.median(rel[len(queries):])),
+        "fastpath_vs_host_mismatches": len(mismatched),
+        "launches": launches, "kernel_cases": main_cases,
+        "build_stats": {k: v for k, v in fw.synopsis.build_stats.items()
+                        if k in ("pair_launches", "compaction", "device")},
+    }
+    emit({k: v for k, v in out.items() if k != "kernel_cases"})
+    if mismatched:
+        raise AssertionError(f"fast path differs from host NumPy: "
+                             f"{mismatched[:5]}")
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{zero}")
+    return out
+
+
+def _profile_report(prof) -> None:
+    """Per ``main.*`` span of a profiled main path: the device's busy time
+    (intervals of kernels, memsets and copies merged and clipped to the
+    span) and idle share, and device time by name, written to
+    ``chiprun_out/chip_smoke_profile.json``. The profiler's own overhead
+    is inside these numbers."""
+    import torch
+    events = prof.events()
+    work = [e for e in events if _is_device_work(e)]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in work)
+    report = {"phase": "profile", "kernel_events": len(kernels), "spans": {}}
+    for e in events:
+        if not e.name.startswith("main.") or \
+                e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        busy, end = 0.0, lo
+        for k0, k1 in kernels:          # merge overlaps, clip to the span
+            k0, k1 = max(k0, end, lo), min(k1, hi)
+            if k1 > k0:
+                busy += k1 - k0
+                end = k1
+        wall = hi - lo
+        seen = kernels and wall > 0     # no kernel events: not measured
+        report["spans"][e.name] = {
+            "wall_ms": wall / 1e3,
+            "device_busy_ms": busy / 1e3 if seen else None,
+            "idle_share": 1.0 - busy / wall if seen else None}
+    by_name = {}
+    for e in work:
+        d = by_name.setdefault(e.name, [0.0, 0])
+        d[0] += (e.time_range.end - e.time_range.start) / 1e3
+        d[1] += 1
+    report["top_kernels"] = [
+        {"name": n[:120], "device_ms": v[0], "count": v[1]}
+        for n, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]]
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_profile.json").write_text(
+        json.dumps(report, indent=1))
+    emit({"phase": "profile", "kernel_events": len(kernels),
+          "spans": report["spans"], "top_kernels": report["top_kernels"][:8]})
+
+
+# --------------------------------------------------------------- phase 5
+
+
+def phase_parity() -> None:
+    import numpy as np
+    from repro_torch.aqp import datasets
+    from repro_torch.aqp.engine import AQPFramework
+    from repro_torch.core.types import BuildParams
+    table = datasets.flights(n=60_000)
+    params = BuildParams(n_samples=20_000)
+    built = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        built[dev] = AQPFramework(params, device=dev).ingest(table).synopsis
+        built[dev + "_s"] = time.perf_counter() - t
+    a, b = built["cuda"], built["cpu"]
+    diffs = []
+    for i, (ha, hb) in enumerate(zip(a.hists, b.hists)):
+        for f in ha._fields:
+            if not np.array_equal(getattr(ha, f), getattr(hb, f)):
+                diffs.append(f"hist {i} {f}")
+    if set(a.pairs) != set(b.pairs):
+        diffs.append("pair keys")
+    for key in set(a.pairs) & set(b.pairs):
+        for f in a.pairs[key]._fields:
+            if not np.array_equal(getattr(a.pairs[key], f),
+                                  getattr(b.pairs[key], f)):
+                diffs.append(f"pair {key} {f}")
+    emit({"phase": "parity", "rows": 60_000, "n_samples": 20_000,
+          "pairs": len(a.pairs), "cuda_build_s": built["cuda_s"],
+          "cpu_build_s": built["cpu_s"], "mismatched_fields": diffs})
+    if diffs:
+        raise AssertionError(f"card and CPU synopses differ: {diffs}")
+
+
+# --------------------------------------------------------------------- main
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path's run with torch.profiler "
+                         "(device busy time and idle share per span)")
+    args = ap.parse_args(argv)
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    try:
+        info = phase_device()
+        phase_build()
+        cases = phase_kernels()
+        main_out = phase_main(args.profile)
+        phase_parity()
+    except Exception:  # noqa: BLE001 — any failed phase fails the run
+        traceback.print_exc()
+        return 1
+    # Reported shapes: K1/K2 on the main path's own wave inputs; K3/K4 at
+    # the main path's launch shape (8 slots x 100,000 rows, k2 = 64, f64 0/1
+    # weights). max_abs_err is the largest over every case of the kernel.
+    cases = cases + main_out["kernel_cases"]
+    report = {c["name"]: c for c in main_out["kernel_cases"]}
+    for c in cases:
+        if c.get("k2") == 64 and c.get("weights") == "f64_01":
+            report[c["name"]] = c
+    kernels = []
+    for name in TPU_KERNELS:
+        c = report[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name],
+            "launches": main_out["launches"][name],
+            "max_abs_err": max(x["max_abs_err"] for x in cases
+                               if x["name"] == name),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(info["nvidia_smi"], flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
