@@ -6,11 +6,13 @@
 Phases, each printing one JSON line:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
-  2. build   — compile every CUDA kernel of the main path from
+  2. build   — compile every CUDA kernel of the port from
                ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
                all started together);
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes and time kernel, plain
+               card at the main path's shapes (the single histogram, K5,
+               at 100,000 and 10,000,000 rows into 256 x 256 bins and at
+               its one-slab and many-slab shapes) and time kernel, plain
                version and one PyTorch library call;
   4. main    — ingest the 500,000-row ``flights`` table with the paper's
                defaults (N_s = 100,000, alpha = 0.001, M = 1%), answer 256
@@ -18,7 +20,14 @@ Phases, each printing one JSON line:
                through ``FastPath.batch``, check every answer against the
                host-NumPy engine and count the kernel launches of this run;
   5. parity  — build a 60,000-row ``flights`` synopsis on the card and on
-               the CPU and require them equal field by field.
+               the CPU and require them equal field by field;
+  6. sharded — two ``gloo`` ranks in two processes on the one card bin the
+               two halves of 10,000,000 rows with ``hist2d_sharded``; rank 0
+               requires the all-reduced counts to equal the plain version
+               on the whole input exactly;
+  7. bench   — ``repro_torch.bench.kernels.run`` on the card (its CSV rows
+               print on lines of their own, its JSON goes to
+               ``chiprun_out/bench/``).
 
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -49,13 +58,21 @@ TPU_KERNELS = {
     "fused_weightings": "src/repro/kernels/weightings/weightings.py:92",
     "batched_hist2d": "src/repro/kernels/hist2d/hist2d.py:82",
     "batched_subbin_hist": "src/repro/kernels/subbin/subbin.py:52",
+    "hist2d": "src/repro/kernels/hist2d/hist2d.py:42",
 }
 SOURCES = {
     "batched_weightings": "src/repro_torch/kernels/csrc/weightings.cu",
     "fused_weightings": "src/repro_torch/kernels/csrc/weightings.cu",
     "batched_hist2d": "src/repro_torch/kernels/csrc/flat_hist.cu",
     "batched_subbin_hist": "src/repro_torch/kernels/csrc/flat_hist.cu",
+    "hist2d": "src/repro_torch/kernels/csrc/hist2d.cu",
 }
+# The kernels that the main phase's path (ingest, queries, wave) launches;
+# K5 (``hist2d``) is launched by the sharded and bench phases.
+MAIN_KERNELS = ("batched_weightings", "fused_weightings", "batched_hist2d",
+                "batched_subbin_hist")
+# The sharded phase: rows and bins of the whole input, and its ranks.
+SHARDED_N, SHARDED_K, SHARDED_WORLD = 10_000_000, 256, 2
 
 
 def emit(obj) -> None:
@@ -196,6 +213,58 @@ def _hist_case(kind: str, k2: int, wdtype, rng) -> dict:
                 max_abs_err=err, bound_ms=bms, bound_by=by)
 
 
+def _single_hist_case(n: int, ki: int, kj: int, weights: str, rng,
+                      clip: bool = False) -> dict:
+    """One K5 comparison: ``weights`` "01" (exact) or "f32" (rtol 1e-5);
+    ``clip`` draws indices up to 2 bins outside the histogram."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.hist2d import hist2d
+    from repro_torch.kernels.hist2d.ref import hist2d_ref
+    dev = torch.device("cuda")
+    pad = 2 if clip else 0
+    bi, bj = (torch.as_tensor(rng.integers(-pad, k + pad, n, dtype=np.int32),
+                              device=dev) for k in (ki, kj))
+    if weights == "01":
+        w = torch.as_tensor((rng.random(n) < 0.9).astype(np.float32),
+                            device=dev)
+    else:
+        w = torch.as_tensor(rng.random(n, dtype=np.float32), device=dev)
+    got = hist2d(bi, bj, w, ki, kj)
+    want = hist2d_ref(bi, bj, w, ki, kj)
+    torch.cuda.synchronize()
+    if weights == "01":
+        ok, tol = bool(torch.equal(got, want)), "exact"
+    else:
+        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+        tol = "rtol 1e-5 atol 1e-6"
+    flat = (torch.clamp(bi.to(torch.int64), 0, ki - 1) * kj
+            + torch.clamp(bj.to(torch.int64), 0, kj - 1))
+    bms, by = bound_ms(n * 12 + ki * kj * 4, n)
+    return dict(_times(lambda: hist2d(bi, bj, w, ki, kj),
+                       lambda: hist2d_ref(bi, bj, w, ki, kj),
+                       lambda: torch.bincount(flat, weights=w,
+                                              minlength=ki * kj)),
+                name="hist2d", n=n, ki=ki, kj=kj, weights=weights,
+                clipped=clip, ok=ok, tolerance=tol,
+                max_abs_err=float((got - want).abs().max()), bound_ms=bms,
+                bound_by=by)
+
+
+def _single_hist_empty() -> dict:
+    """K5 with no rows: zeros and no launch."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.hist2d import hist2d
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    before = launch_counts()["hist2d"]
+    out = hist2d(empty, empty, empty.float(), 256, 256)
+    ok = (out.shape == (256, 256) and not bool(out.any())
+          and launch_counts()["hist2d"] == before)
+    return {"name": "hist2d", "n": 0, "ki": 256, "kj": 256, "ok": ok,
+            "tolerance": "zeros, no launch", "max_abs_err": 0.0}
+
+
 def _times(fn, ref, library) -> dict:
     """Device ms per call of the kernel's wrapper, its plain version and the
     library call, plus the wall ms per call of the first two."""
@@ -280,6 +349,13 @@ def phase_kernels() -> dict:
         args = _weightings_inputs(q, el, 256, 512, rng)
         cases.append(_weightings_case("batched_weightings", *args))
         cases.append(_weightings_case("fused_weightings", *args))
+    # K5: the reported shape first, then whole-table scale, one slab (with
+    # out-of-range rows), many slabs, no rows.
+    cases.append(_single_hist_case(100_000, 256, 256, "f32", rng))
+    cases.append(_single_hist_case(SHARDED_N, 256, 256, "01", rng))
+    cases.append(_single_hist_case(64_000, 96, 64, "01", rng, clip=True))
+    cases.append(_single_hist_case(1_024, 512, 512, "f32", rng))
+    cases.append(_single_hist_empty())
     _check(cases, "kernels")
     return cases
 
@@ -428,7 +504,7 @@ def phase_main(profile: bool = False) -> dict:
     if mismatched:
         raise AssertionError(f"fast path differs from host NumPy: "
                              f"{mismatched[:5]}")
-    zero = [k for k, v in launches.items() if v <= 0]
+    zero = [k for k in MAIN_KERNELS if launches[k] <= 0]
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
@@ -513,6 +589,137 @@ def phase_parity() -> None:
         raise AssertionError(f"card and CPU synopses differ: {diffs}")
 
 
+# --------------------------------------------------------------- phase 6
+
+
+def _sharded_run(rank: int, world: int, init_file: str, device: str,
+                 n: int) -> dict:
+    """One rank of the sharded phase: the whole input from the seed, this
+    rank's ``np.array_split`` share binned by ``hist2d_sharded``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.hist2d import hist2d_sharded
+    from repro_torch.kernels.hist2d.ref import hist2d_ref
+    k = SHARDED_K
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        rng = np.random.default_rng(0)
+        bi = rng.integers(0, k, n, dtype=np.int32)
+        bj = rng.integers(0, k, n, dtype=np.int32)
+        w = (rng.random(n) < 0.9).astype(np.float32)
+        dev = torch.device(device)
+        a, b, c = (torch.as_tensor(np.array_split(x, world)[rank], device=dev)
+                   for x in (bi, bj, w))
+        before = launch_counts()["hist2d"]
+        got = hist2d_sharded(a, b, c, k, k)      # warm-up
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = hist2d_sharded(a, b, c, k, k)
+        sync()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        buf = torch.ones(k * k, device=dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        sync()
+        out = {"rank": rank, "rows": int(a.shape[0]),
+               "sharded_ms": sharded_ms,
+               "all_reduce_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": launch_counts()["hist2d"] - before}
+        if rank == 0:
+            want = hist2d_ref(torch.as_tensor(bi, device=dev),
+                              torch.as_tensor(bj, device=dev),
+                              torch.as_tensor(w, device=dev), k, k)
+            out["exact"] = bool(torch.equal(got, want))
+            out["max_abs_err"] = float((got - want).abs().max())
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(rank: int, world: int, init_file: str, device: str, n: int,
+                  queue) -> None:
+    """Process entry of one rank: its result, or its traceback, goes to
+    ``queue``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        out = _sharded_run(rank, world, init_file, device, n)
+    except Exception:  # noqa: BLE001 — reported to the parent
+        out = {"rank": rank, "error": traceback.format_exc()}
+    queue.put(out)
+
+
+def phase_sharded(device: str = "cuda:0", n: int = SHARDED_N) -> list:
+    """Two gloo ranks on one card (NCCL refuses two ranks on one device);
+    every process started here is stopped before it returns."""
+    import torch.multiprocessing as mp
+    OUT_DIR.mkdir(exist_ok=True)
+    init = OUT_DIR / "sharded.init"
+    init.unlink(missing_ok=True)
+    queue = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _sharded_rank, args=(SHARDED_WORLD, str(init), device, n, queue),
+        nprocs=SHARDED_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    ranks = []
+    try:
+        done = False
+        while not done:                 # drain the queue while joining
+            while not queue.empty():
+                ranks.append(queue.get())
+            done = ctx.join(timeout=2)
+            if not done and time.monotonic() > deadline:
+                raise TimeoutError("sharded ranks did not finish in 300 s")
+        while not queue.empty():
+            ranks.append(queue.get())
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        init.unlink(missing_ok=True)
+    ranks.sort(key=lambda r: r["rank"])
+    if len(ranks) != SHARDED_WORLD:
+        raise AssertionError(f"sharded phase: {len(ranks)} of "
+                             f"{SHARDED_WORLD} ranks reported")
+    emit({"phase": "sharded", "rows": n, "bins": [SHARDED_K, SHARDED_K],
+          "world": SHARDED_WORLD, "backend": "gloo", "device": device,
+          "seconds": time.perf_counter() - t0, "ranks": ranks})
+    bad = [r for r in ranks if "error" in r or r["launches"] <= 0]
+    if bad or not ranks[0].get("exact"):
+        raise AssertionError(f"sharded phase failed: {ranks}")
+    return ranks
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def phase_bench() -> int:
+    """The kernel bench on the card; returns K5's launches in it."""
+    from repro_torch.bench import kernels as bench_kernels
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rows = []
+    reset_launch_counts()
+    out = bench_kernels.run(rows, device="cuda", out_dir=OUT_DIR / "bench")
+    launches = launch_counts()["hist2d"]
+    for row in rows:
+        print(row, flush=True)
+    emit({"phase": "bench", "rows": len(rows), "hist2d_launches": launches,
+          "query_agree": out["query_path"]["agree"],
+          "json": str((OUT_DIR / "bench" / "kernels.json").relative_to(ROOT))})
+    if launches <= 0:
+        raise AssertionError("the bench never launched the hist2d kernel")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -539,24 +746,31 @@ def main(argv=None) -> int:
         cases = phase_kernels()
         main_out = phase_main(args.profile)
         phase_parity()
+        ranks = phase_sharded()
+        bench_launches = phase_bench()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     # Reported shapes: K1/K2 on the main path's own wave inputs; K3/K4 at
     # the main path's launch shape (8 slots x 100,000 rows, k2 = 64, f64 0/1
-    # weights). max_abs_err is the largest over every case of the kernel.
+    # weights); K5 at the bench's 100,000 rows x 256 x 256, fp32 weights.
+    # max_abs_err is the largest over every case of the kernel. K5's
+    # launches are those of the sharded ranks and the bench.
     cases = cases + main_out["kernel_cases"]
     report = {c["name"]: c for c in main_out["kernel_cases"]}
     for c in cases:
-        if c.get("k2") == 64 and c.get("weights") == "f64_01":
+        if (c.get("k2") == 64 and c.get("weights") == "f64_01") or \
+                (c.get("n") == 100_000 and c.get("weights") == "f32"):
             report[c["name"]] = c
+    launches = dict(main_out["launches"],
+                    hist2d=bench_launches + sum(r["launches"] for r in ranks))
     kernels = []
     for name in TPU_KERNELS:
         c = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
-            "launches": main_out["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["name"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"],

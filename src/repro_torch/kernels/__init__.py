@@ -4,7 +4,10 @@
     fast path (``batched_weightings``, and ``fused_weightings`` as its
     single-query launch);
   * ``hist2d`` / ``subbin`` — the pair-batched 2-D count and chi-squared
-    sub-bin histograms of construction, one flat-id histogram kernel.
+    sub-bin histograms of construction, one flat-id histogram kernel;
+  * ``hist2d`` also holds the single weighted 2-D histogram (``hist2d``,
+    its own slab-privatised kernel) and its row-sharded form over
+    ``torch.distributed`` (``hist2d_sharded``).
 
 Each package has ``ref.py`` (plain PyTorch) and ``ops.py``, which sends a
 CUDA tensor to the kernel (``csrc/*.cu``, built by ``loader``) and a CPU

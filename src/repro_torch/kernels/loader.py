@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C function: argtypes}
 EXPORTS = {
     "weightings": {
@@ -39,6 +39,10 @@ EXPORTS = {
         # a, b, w, out, P, N, KA, KB, stream
         "flat_hist_f32": [P, P, P, P, I, I, I, I, P],
         "flat_hist_f64": [P, P, P, P, I, I, I, I, P],
+    },
+    "hist2d": {
+        # bi, bj, w, out, N, KI, KJ, stream
+        "hist2d_launch": [P, P, P, P, I64, I, I, P],
     },
 }
 

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.hist2d import batched_hist2d
-from repro_torch.kernels.hist2d.ref import batched_hist2d_ref
+from repro_torch.kernels.hist2d import batched_hist2d, hist2d
+from repro_torch.kernels.hist2d.ref import batched_hist2d_ref, hist2d_ref
 from repro_torch.kernels.subbin import batched_subbin_hist
 from repro_torch.kernels.subbin.ref import batched_subbin_hist_ref
 from repro_torch.kernels.weightings import (batched_weightings,
@@ -194,8 +194,10 @@ def test_cpu_tensors_never_launch():
     w = torch.ones((1, 5), dtype=torch.float64)
     batched_hist2d(idx, idx, w, 2, 2)
     batched_subbin_hist(idx, idx, w, 2, 2)
+    hist2d(idx[0], idx[0], w[0], 2, 2)
     assert launch_counts() == {"batched_weightings": 0, "fused_weightings": 0,
-                               "batched_hist2d": 0, "batched_subbin_hist": 0}
+                               "batched_hist2d": 0, "hist2d": 0,
+                               "batched_subbin_hist": 0}
 
 
 # ------------------------------------------- CUDA kernels vs plain versions
@@ -226,6 +228,34 @@ def test_cuda_hist2d_matches_plain(cuda, k):
     torch.testing.assert_close(batched_hist2d(bi, bj, wf, k, k),
                                batched_hist2d_ref(bi, bj, wf, k, k),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ki,kj", [
+    (100_000, 256, 256), (64_000, 96, 64), (1024, 512, 512), (4099, 37, 53),
+])
+def test_cuda_single_hist2d_matches_plain(cuda, n, ki, kj):
+    """K5: exact for 0/1 weights, rtol 1e-5 for fp32 ones (atomics add in
+    no fixed order); out-of-range rows clip; an unaligned view takes the
+    scalar loads; no rows, no launch."""
+    rng = np.random.default_rng(n + ki)
+    bi = _t(rng.integers(-2, ki + 2, n).astype(np.int32)).to(cuda)
+    bj = _t(rng.integers(-2, kj + 2, n).astype(np.int32)).to(cuda)
+    w01 = _t((rng.random(n) < 0.9).astype(np.float32)).to(cuda)
+    before = launch_counts()["hist2d"]
+    got = hist2d(bi, bj, w01, ki, kj)
+    torch.cuda.synchronize()
+    assert launch_counts()["hist2d"] == before + 1
+    assert torch.equal(got, hist2d_ref(bi, bj, w01, ki, kj))
+    assert torch.equal(hist2d(bi[1:], bj[1:], w01[1:], ki, kj),
+                       hist2d_ref(bi[1:], bj[1:], w01[1:], ki, kj))
+    wf = _t(rng.random(n).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(hist2d(bi, bj, wf, ki, kj),
+                               hist2d_ref(bi, bj, wf, ki, kj),
+                               rtol=1e-5, atol=1e-6)
+    before = launch_counts()["hist2d"]
+    assert not hist2d(bi[:0], bj[:0], wf[:0], ki, kj).any()
+    assert launch_counts()["hist2d"] == before
 
 
 @pytest.mark.cuda
