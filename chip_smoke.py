@@ -12,13 +12,15 @@ Phases, each printing one JSON line:
   3. kernels — hold each kernel against its plain PyTorch version on the
                card at the main path's shapes (the single histogram, K5,
                at 100,000 and 10,000,000 rows into 256 x 256 bins and at
-               its one-slab and many-slab shapes) and time kernel, plain
-               version and one PyTorch library call;
+               its one-slab and many-slab shapes; K1/K2 at the build
+               caps) and time kernel, plain version and one PyTorch library
+               call;
   4. main    — ingest the 500,000-row ``flights`` table with the paper's
                defaults (N_s = 100,000, alpha = 0.001, M = 1%), answer 256
                generated queries one at a time and one 64-query serving wave
                through ``FastPath.batch``, check every answer against the
                host-NumPy engine and count the kernel launches of this run;
+               then K1/K2 once more on the wave's own stacks;
   5. parity  — build a 60,000-row ``flights`` synopsis on the card and on
                the CPU and require them equal field by field;
   6. sharded — two ``gloo`` ranks in two processes on the one card bin the
@@ -105,21 +107,27 @@ def _is_device_work(e) -> bool:
             and not e.name.startswith("main."))
 
 
-def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warm: int = 3, tries: int = 5) -> float:
     """Device time per call of ``fn``: the summed durations of the kernels,
     memsets and copies it puts on the card (``torch.profiler``), over
-    ``reps`` warm calls. Host overhead is not in it."""
+    ``reps`` warm calls. Host overhead is not in it. Every call puts at
+    least one operation on the card, so a trace with fewer than ``reps``
+    device events lost some (seen on the card as whole cases reading 0)
+    and is taken again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.end - e.time_range.start
-                   for e in prof.events() if _is_device_work(e))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        work = [e for e in prof.events() if _is_device_work(e)]
+        if len(work) >= reps:
+            break
+    total_us = sum(e.time_range.end - e.time_range.start for e in work)
     return total_us / 1e3 / reps
 
 
@@ -267,10 +275,10 @@ def _single_hist_empty() -> dict:
 
 def _times(fn, ref, library) -> dict:
     """Device ms per call of the kernel's wrapper, its plain version and the
-    library call, plus the wall ms per call of the first two."""
+    library call, plus the wall ms per call of all three."""
     return {"ms": device_ms(fn), "plain_ms": device_ms(ref),
             "library_ms": device_ms(library), "wall_ms": wall_ms(fn),
-            "plain_wall_ms": wall_ms(ref)}
+            "plain_wall_ms": wall_ms(ref), "library_wall_ms": wall_ms(library)}
 
 
 def _weightings_inputs(q: int, el: int, k2: int, k1: int, rng):
@@ -288,48 +296,60 @@ def _weightings_inputs(q: int, el: int, k2: int, k1: int, rng):
 
 
 def _weightings_case(kind: str, H, beta, fold, hx, **labels) -> dict:
-    """One K1/K2 comparison; K2 (``fused_weightings``) takes ``beta[0]``."""
+    """One K1/K2 comparison; K2 (``fused_weightings``) takes ``beta[0]``.
+
+    ``fold`` is the dense one-hot fold or its index; the kernel and its
+    plain version take the index (converted here, outside the timed calls),
+    the library call (the reference's einsum chain) the dense fold."""
     import torch
     from repro_torch.kernels.weightings import (batched_weightings,
-                                                fused_weightings)
+                                                fold_index, fused_weightings)
     from repro_torch.kernels.weightings.ref import (batched_weightings_ref,
                                                     fused_weightings_ref)
     el, k2, _ = H.shape
-    q, k1 = beta.shape[0], fold.shape[1]
+    if fold.dim() == 3:
+        dense, idx = fold, fold_index(fold)
+    else:
+        idx = fold
+        dense = torch.nn.functional.one_hot(idx.long(), k2).float()
+    q, k1 = beta.shape[0], idx.shape[1]
     if kind == "fused_weightings":
         q = 1
         b1 = beta[0]
 
         def fn():
-            return fused_weightings(H, b1, fold, hx)
+            return fused_weightings(H, b1, idx, hx)
 
         def ref():
-            return fused_weightings_ref(H, b1, fold, hx)
+            return fused_weightings_ref(H, b1, idx, hx)
     else:
         def fn():
-            return batched_weightings(H, beta, fold, hx)
+            return batched_weightings(H, beta, idx, hx)
 
         def ref():
-            return batched_weightings_ref(H, beta, fold, hx)
+            return batched_weightings_ref(H, beta, idx, hx)
 
     def library():
         v = torch.einsum("lab,qlb->qla", H, beta[:q])
         p_row = torch.clamp(v / torch.clamp(hx, min=1e-30), 0.0, 1.0)
-        return torch.einsum("lka,qla->qlk", fold, p_row).prod(dim=1)
+        return torch.einsum("lka,qla->qlk", dense, p_row).prod(dim=1)
 
     got, want = fn(), ref()
     torch.cuda.synchronize()
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
-    # The fold is one-hot: count the products its non-zeros need.
-    nnz = int((fold != 0).sum())
-    n_bytes = 4 * (el * k2 * k2 + q * el * k2 + el * k1 * k2 + el * k2
-                   + q * k1)
-    n_ops = 2 * q * (el * k2 * k2 + nnz) + q * el * k1
+    # Bytes: each input once (the fold as its int32 index), the output once;
+    # operations: the products H beta and the product over predicates.
+    n_bytes = 4 * (el * k2 * k2 + q * el * k2 + el * k1 + el * k2 + q * k1)
+    n_ops = 2 * q * el * k2 * k2 + q * el * k1
     bms, by = bound_ms(n_bytes, n_ops)
+    # The bound of PRs 11-12: the dense fold read, its one-hot products.
+    dense_bms, _ = bound_ms(n_bytes + 4 * el * k1 * (k2 - 1),
+                            n_ops + 2 * q * el * k1)
     return dict(_times(fn, ref, library), name=kind, q=q, l=el, k2=k2,
-                k1=k1, ok=ok, tolerance="rtol 1e-5 atol 1e-6",
+                k1=k1, ok=ok,
+                tolerance="rtol 1e-5 atol 1e-6",
                 max_abs_err=float((got - want).abs().max()), bound_ms=bms,
-                bound_by=by, **labels)
+                bound_by=by, dense_fold_bound_ms=dense_bms, **labels)
 
 
 def phase_kernels() -> dict:
@@ -345,10 +365,12 @@ def phase_kernels() -> dict:
         for k2 in (64, 256):
             for wd in ("f64_01", "f32"):
                 cases.append(_hist_case(kind, k2, wd, rng))
-    for q, el in ((64, 1), (64, 3)):
-        args = _weightings_inputs(q, el, 256, 512, rng)
-        cases.append(_weightings_case("batched_weightings", *args))
-        cases.append(_weightings_case("fused_weightings", *args))
+    # K1/K2 at the build caps (Q = 64, K2 = 256, K1 = 512); the main path's
+    # own shape is measured in the main phase.
+    for el in (1, 3):
+        args = _weightings_inputs(64, el, 256, 512, rng)
+        for kind in ("batched_weightings", "fused_weightings"):
+            cases.append(_weightings_case(kind, *args, shape="caps"))
     # K5: the reported shape first, then whole-table scale, one slab (with
     # out-of-range rows), many slabs, no rows.
     cases.append(_single_hist_case(100_000, 256, 256, "f32", rng))
@@ -465,12 +487,12 @@ def phase_main(profile: bool = False) -> dict:
     fp = fw.fastpath
     split = [fp._split_leaves(engine.ph, agg_col, p.tree) for p in plans]
     pair_cols = tuple(lf.col for lf in split[0][1])
-    hs, fs, hxs, _k1, k2max = fp._get_stack(engine.ph, agg_col, pair_cols)
+    hs, fidx, hxs, _k1, k2max = fp._get_stack(engine.ph, agg_col, pair_cols)
     betas = fp._pair_betas_batch(engine.ph, agg_col,
                                  [pls for _, pls in split], k2max)
     betas = torch.as_tensor(betas.reshape(-1, len(pair_cols), k2max),
                             device=hs.device)
-    main_cases = [_weightings_case(kind, hs, betas, fs, hxs, shape="main")
+    main_cases = [_weightings_case(kind, hs, betas, fidx, hxs, shape="main")
                   for kind in ("batched_weightings", "fused_weightings")]
     _check(main_cases, "main_kernels")
 

@@ -19,7 +19,9 @@ workload). OR / nested trees return None -> engine falls back to the NumPy
 reference path (repro_torch.core.weightings), which is also the oracle in tests.
 
 Unlike the reference, the stacks are not padded to 128 lanes (that served
-the TPU's matrix unit): they are exactly (L, K2max, K2max) and (L, K1, K2max).
+the TPU's matrix unit): they are exactly (L, K2max, K2max) and (L, K2max),
+and the fold travels as its (L, K1) int32 index (``fold_x`` per predicate)
+instead of the reference's dense one-hot (L, K1p, K2max) matrix.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from repro_torch.core import coverage as covlib
 from repro_torch.core import weightings as wlib
 from repro_torch.device import resolve_device
-from repro_torch.kernels.weightings import batched_weightings, fused_weightings
+from repro_torch.kernels.weightings import check_stack, stacked_weightings
 
 Z_98 = wlib.Z_98
 
@@ -67,10 +69,11 @@ def _widen_clip(w, wlo, whi, ph, h, corrected):
 class FastPath:
     """Engine hook: (ph, agg_col, tree, corrected) -> weightings triple.
 
-    The (H, fold) stacks depend only on (agg column, predicate columns),
-    NOT on the query literals — they are device-resident constants of the
-    synopsis, cached per column set as fp32 tensors on ``device``; per query
-    only the tiny beta vectors are assembled on the host and copied over.
+    The (H, fold index, hx) stacks depend only on (agg column, predicate
+    columns), NOT on the query literals — they are device-resident
+    constants of the synopsis, cached per column set on ``device`` and
+    checked once when built; per query only the tiny beta vectors are
+    assembled on the host and copied over.
     ``device=None`` means the CUDA device (raising without one).
     """
 
@@ -99,16 +102,17 @@ class FastPath:
         el = len(prs)
         hpad = np.zeros((el, k2max, k2max), np.float32)
         hxpad = np.zeros((el, k2max), np.float32)
-        fpad = np.zeros((el, k1, k2max), np.float32)
+        fidx = np.zeros((el, k1), np.int32)
         for li, pr in enumerate(prs):
             hpad[li, :pr.H.shape[0], :pr.H.shape[1]] = pr.H
             # per-row denominator = 1-D mass inside the row (incl. j-NULLs)
             denom = np.zeros(int(pr.kx))
             np.add.at(denom, pr.fold_x, hist.h)
             hxpad[li, :pr.H.shape[0]] = denom
-            fpad[li, np.arange(k1), np.asarray(pr.fold_x)] = 1.0
+            fidx[li] = pr.fold_x      # 1-D bin -> containing pair x-row
         entry = tuple(torch.as_tensor(a, device=self.device)
-                      for a in (hpad, fpad, hxpad)) + (k1, k2max)
+                      for a in (hpad, fidx, hxpad)) + (k1, k2max)
+        check_stack(*entry[:3])
         cache[key] = entry
         return entry
 
@@ -203,13 +207,20 @@ class FastPath:
         outs = []
         if pair_leaves:
             pred_cols = tuple(lf.col for lf in pair_leaves)
-            hpad, fpad, hxpad, k1c, k2max = self._get_stack(
+            hpad, fidx, hxpad, k1c, k2max = self._get_stack(
                 ph, agg_col, pred_cols)
-            betas = self._pair_betas(ph, agg_col, pair_leaves, k2max)
+            betas = torch.as_tensor(
+                self._pair_betas(ph, agg_col, pair_leaves, k2max),
+                device=self.device)                         # (3, L, K2)
+            prob1 = torch.empty((3, k1c), dtype=torch.float32,
+                                device=self.device)
+            for idx in range(3):   # one launch per bound variant
+                stacked_weightings(hpad, betas[idx:idx + 1], fidx, hxpad,
+                                   "fused_weightings",
+                                   out=prob1[idx:idx + 1])
+            prob1 = prob1.cpu().numpy()
             for idx in range(3):
-                prob1 = fused_weightings(
-                    hpad, betas[idx], fpad, hxpad).cpu().numpy()[:k1c]
-                w = h * prob1
+                w = h * prob1[idx]
                 for prob in same_col[idx]:
                     w = w * prob
                 outs.append(np.asarray(w, np.float64))
@@ -254,13 +265,15 @@ class FastPath:
         nq = len(splits)
 
         if pair_cols:
-            hpad, fpad, hxpad, k1c, k2max = self._get_stack(
+            hpad, fidx, hxpad, k1c, k2max = self._get_stack(
                 ph, agg_col, pair_cols)
             betas = self._pair_betas_batch(
                 ph, agg_col, [pls for _, pls in splits], k2max)  # (B,3,L,K2)
-            flat = betas.reshape(nq * 3, len(pair_cols), k2max)
-            prob1 = batched_weightings(
-                hpad, flat, fpad, hxpad).cpu().numpy()[:, :k1c]
+            flat = torch.as_tensor(
+                betas.reshape(nq * 3, len(pair_cols), k2max),
+                device=self.device)
+            prob1 = stacked_weightings(hpad, flat, fidx, hxpad,
+                                       "batched_weightings").cpu().numpy()
             prob1 = prob1.reshape(nq, 3, k1c)               # (B, 3, K1)
         else:
             prob1 = np.ones((nq, 3, int(hist.k)))

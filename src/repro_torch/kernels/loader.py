@@ -32,8 +32,9 @@ P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C function: argtypes}
 EXPORTS = {
     "weightings": {
-        # H, beta, fold, hx, out, L, Q, K1, K2, stream
-        "weightings_launch": [P, P, P, P, P, I, I, I, I, P],
+        # H, beta, fold_idx, hx, out, scratch, tickets, L, Q, K1, K2, tq,
+        # tr, stream
+        "weightings_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
     "flat_hist": {
         # a, b, w, out, P, N, KA, KB, stream
