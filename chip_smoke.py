@@ -10,9 +10,12 @@ Phases, each printing one JSON line:
                ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
                all started together);
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes (the single histogram, K5,
-               at 100,000 and 10,000,000 rows into 256 x 256 bins and at
-               its one-slab and many-slab shapes; K1/K2 at the build
+               card at the main path's shapes (K3/K4 on the inputs of the
+               first 2-D refinement round of one ingest of the main table,
+               recorded outside the main run, and on uniform and sorted
+               skewed inputs at k2 = 64, 128, 256; the single histogram,
+               K5, at 100,000 and 10,000,000 rows into 256 x 256 bins and
+               at its one-slab and many-slab shapes; K1/K2 at the build
                caps) and time kernel, plain version and one PyTorch library
                call;
   4. main    — ingest the 500,000-row ``flights`` table with the paper's
@@ -173,41 +176,122 @@ def phase_build() -> None:
 # --------------------------------------------------------------- phase 3
 
 
-def _hist_case(kind: str, k2: int, wdtype, rng) -> dict:
-    """One K3/K4 comparison at P = 8 pairs x N = 100,000 sampled rows."""
+HIST_P, HIST_N, HIST_S_MAX = 8, 100_000, 32   # a pair loop's launch
+
+
+def _hist_bins(kind: str, k2: int) -> tuple[int, int]:
+    """(KA, KB) of K3 (k2 x k2 counts) or K4 (k2^2 cells x s_max)."""
+    return (k2, k2) if kind == "batched_hist2d" else (k2 * k2, HIST_S_MAX)
+
+
+def hist_inputs(kind: str, k2: int, weights: str, layout: str, rng,
+                device="cuda"):
+    """Synthetic K3/K4 inputs of a pair loop's launch (8 pairs x 100,000
+    rows). ``layout`` "uniform": ids uniform over the bins; "sorted": each
+    pair's rows sorted by flat id, a quarter of them in one heavy bin and
+    the rest Zipf(1.3)-distributed over the bins, as sorted skewed columns
+    give. ``weights`` "f64_01" (5% zeros) or "f32": uniform in [0, 1) on
+    uniform ids; on sorted ids multiples of 1/256 in [0, 1), whose fp32
+    sums are exact in any order (a heavy bin sums 25,000 rows, where the
+    plain version's own fp32 order alone moves the sum by about 1e-5)."""
+    import numpy as np
+    import torch
+    p, n = HIST_P, HIST_N
+    ka, kb = _hist_bins(kind, k2)
+    if layout == "uniform":
+        a, b = rng.integers(0, ka, (p, n)), rng.integers(0, kb, (p, n))
+    else:
+        nb = ka * kb
+        rank = np.minimum(rng.zipf(1.3, (p, n)), nb) - 1
+        flat = (rank * 7919 + rng.integers(0, nb, (p, 1))) % nb
+        flat = np.where(rng.random((p, n)) < 0.25,
+                        rng.integers(0, nb, (p, 1)), flat)
+        flat.sort(axis=1)
+        a, b = flat // kb, flat % kb
+    if weights == "f64_01":
+        w = (rng.random((p, n)) < 0.95).astype(np.float64)
+    elif layout == "uniform":
+        w = rng.random((p, n)).astype(np.float32)
+    else:
+        w = (rng.integers(0, 256, (p, n)) / 256).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (a, b, w)) + \
+        (ka, kb)
+
+
+class _Captured(Exception):
+    """Ends the capturing ingest once both launches were recorded."""
+
+
+def capture_main_hist_inputs(device: str = "cuda", table=None,
+                             params=None) -> dict:
+    """The arguments of the first K3 and the first K4 launch of one
+    ``AQPFramework.ingest`` of the main table (the first 2-D refinement
+    round: f64 first-occurrence flags into k2 x k2 cells, f64 validity into
+    k2^2 x s_max sub-bins), cloned. The names the callers bound at import
+    are wrapped for this ingest only and restored; the ingest stops once
+    both are recorded. ``table`` and ``params`` (the main table and the
+    paper's defaults when None) let a rehearsal on the CPU run it small."""
+    import repro_torch.core.chi2 as chi2
+    import repro_torch.core.refine as refine
+    from repro_torch.aqp import datasets
+    from repro_torch.aqp.engine import AQPFramework
+    from repro_torch.core.types import BuildParams
+    got = {}
+    sites = ((refine, "batched_hist2d"), (chi2, "batched_subbin_hist"))
+    originals = [getattr(mod, name) for mod, name in sites]
+
+    def wrap(name, fn):
+        def recorder(*args):
+            if name not in got:
+                got[name] = tuple(x.clone() if hasattr(x, "clone") else x
+                                  for x in args)
+            if len(got) == len(sites):
+                raise _Captured
+            return fn(*args)
+        return recorder
+
+    for (mod, name), fn in zip(sites, originals):
+        setattr(mod, name, wrap(name, fn))
+    try:
+        AQPFramework(params or BuildParams(), use_compression=True,
+                     device=device).ingest(
+                         datasets.flights() if table is None else table)
+    except _Captured:
+        pass
+    finally:
+        for (mod, name), fn in zip(sites, originals):
+            setattr(mod, name, fn)
+    if len(got) != len(sites):
+        raise AssertionError(f"ingest launched only {sorted(got)}")
+    return got
+
+
+def _hist_case(kind: str, a, b, w, ka: int, kb: int, **labels) -> dict:
+    """One K3/K4 comparison: exact for f64 0/1 weights, rtol 1e-5 atol
+    1e-6 otherwise (atomics add in no fixed order); times the kernel, its
+    plain version and ``torch.bincount`` on the clipped flat id."""
     import torch
     from repro_torch.kernels.hist2d import batched_hist2d
     from repro_torch.kernels.hist2d.ref import batched_hist2d_ref
     from repro_torch.kernels.subbin import batched_subbin_hist
     from repro_torch.kernels.subbin.ref import batched_subbin_hist_ref
-    dev = torch.device("cuda")
-    p, n, s_max = 8, 100_000, 32
-    if kind == "batched_hist2d":
-        ka, kb = k2, k2
-        fn, ref = batched_hist2d, batched_hist2d_ref
-    else:
-        ka, kb = k2 * k2, s_max
-        fn, ref = batched_subbin_hist, batched_subbin_hist_ref
-    a = torch.as_tensor(rng.integers(0, ka, (p, n)), device=dev)
-    b = torch.as_tensor(rng.integers(0, kb, (p, n)), device=dev)
-    if wdtype == "f64_01":
-        w = torch.as_tensor((rng.random((p, n)) < 0.95).astype("float64"),
-                            device=dev)
-    else:
-        w = torch.as_tensor(rng.random((p, n)).astype("float32"), device=dev)
+    fn, ref = (batched_hist2d, batched_hist2d_ref) \
+        if kind == "batched_hist2d" else \
+        (batched_subbin_hist, batched_subbin_hist_ref)
+    p, n = w.shape
     got = fn(a, b, w, ka, kb)
     want = ref(a, b, w, ka, kb)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if wdtype == "f64_01":
-        ok = bool(torch.equal(got, want))
-        tol = "exact"
+    if w.dtype == torch.float64 and bool(((w == 0) | (w == 1)).all()):
+        ok, tol = bool(torch.equal(got, want)), "exact"
     else:
         ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
         tol = "rtol 1e-5 atol 1e-6"
     nbins = ka * kb
-    offs = torch.arange(p, device=dev)[:, None] * nbins
-    flat = (a * kb + b + offs).reshape(-1)
+    offs = torch.arange(p, device=w.device)[:, None] * nbins
+    flat = (torch.clamp(a, 0, ka - 1) * kb + torch.clamp(b, 0, kb - 1)
+            + offs).reshape(-1)
     wf = w.reshape(-1)
     out_bytes = p * nbins * w.element_size()
     n_bytes = p * n * (a.element_size() + b.element_size()
@@ -217,8 +301,29 @@ def _hist_case(kind: str, k2: int, wdtype, rng) -> dict:
                        lambda: ref(a, b, w, ka, kb),
                        lambda: torch.bincount(flat, weights=wf,
                                               minlength=p * nbins)),
-                name=kind, k2=k2, weights=wdtype, ok=ok, tolerance=tol,
-                max_abs_err=err, bound_ms=bms, bound_by=by)
+                name=kind, p=p, n=n, ka=ka, kb=kb, ok=ok, tolerance=tol,
+                max_abs_err=err, bound_ms=bms, bound_by=by, **labels)
+
+
+def hist_cases(rng) -> list:
+    """K3/K4: the main path's own first launches (reported, ``shape``
+    "main"), then uniform and sorted skewed inputs at k2 = 64, 128, 256
+    with f64 0/1 and f32 weights."""
+    main = capture_main_hist_inputs()
+    cases = []
+    for kind in ("batched_hist2d", "batched_subbin_hist"):
+        a, b, w, ka, kb = main[kind]
+        k2 = ka if kind == "batched_hist2d" else round(ka ** 0.5)
+        cases.append(_hist_case(kind, a, b, w, ka, kb, shape="main", k2=k2,
+                                weights=str(w.dtype).replace("torch.", "")))
+    for kind in ("batched_hist2d", "batched_subbin_hist"):
+        for layout in ("sorted", "uniform"):
+            for k2 in (64, 128, 256):
+                for wd in ("f64_01", "f32"):
+                    args = hist_inputs(kind, k2, wd, layout, rng)
+                    cases.append(_hist_case(kind, *args, shape=layout, k2=k2,
+                                            weights=wd))
+    return cases
 
 
 def _single_hist_case(n: int, ki: int, kj: int, weights: str, rng,
@@ -360,11 +465,7 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 einsums
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
-    cases = []
-    for kind in ("batched_hist2d", "batched_subbin_hist"):
-        for k2 in (64, 256):
-            for wd in ("f64_01", "f32"):
-                cases.append(_hist_case(kind, k2, wd, rng))
+    cases = hist_cases(rng)
     # K1/K2 at the build caps (Q = 64, K2 = 256, K1 = 512); the main path's
     # own shape is measured in the main phase.
     for el in (1, 3):
@@ -773,16 +874,16 @@ def main(argv=None) -> int:
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
-    # Reported shapes: K1/K2 on the main path's own wave inputs; K3/K4 at
-    # the main path's launch shape (8 slots x 100,000 rows, k2 = 64, f64 0/1
-    # weights); K5 at the bench's 100,000 rows x 256 x 256, fp32 weights.
-    # max_abs_err is the largest over every case of the kernel. K5's
-    # launches are those of the sharded ranks and the bench.
+    # Reported shapes: K1/K2 on the main path's own wave inputs, K3/K4 on
+    # the main path's own first launches (both ``shape`` "main"); K5 at the
+    # bench's 100,000 rows x 256 x 256, fp32 weights. max_abs_err is the
+    # largest over every case of the kernel. K5's launches are those of the
+    # sharded ranks and the bench.
     cases = cases + main_out["kernel_cases"]
-    report = {c["name"]: c for c in main_out["kernel_cases"]}
+    report = {c["name"]: c for c in cases if c.get("shape") == "main"}
     for c in cases:
-        if (c.get("k2") == 64 and c.get("weights") == "f64_01") or \
-                (c.get("n") == 100_000 and c.get("weights") == "f32"):
+        if c["name"] == "hist2d" and c.get("n") == 100_000 and \
+                c.get("weights") == "f32":
             report[c["name"]] = c
     launches = dict(main_out["launches"],
                     hist2d=bench_launches + sum(r["launches"] for r in ranks))

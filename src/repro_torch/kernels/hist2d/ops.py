@@ -85,10 +85,10 @@ def hist2d_sharded(bi, bj, weights, ki: int, kj: int, group=None):
     ``torch.distributed.all_reduce``. Only counts cross ranks.
 
     The reference bins through its pair-batched op at P = 1. That is the
-    same function, but the pair-batched kernel's P = 1 grid (row chunks of
-    4,096 x one pair) leaves most of the card idle at a single histogram's
-    sizes and reads int64 indices, so the port bins through the
-    single-histogram kernel, whose grid is sized to fill the card.
+    same function, but the pair-batched kernel reads int64 indices (twice
+    the index bytes of int32) and is built for rows sorted by bin, whose
+    runs it adds once each; a shard's rows come in no order. So the port
+    bins through the single-histogram kernel, which reads int32 indices.
 
     Raises ``RuntimeError`` when no process group is initialised.
     """

@@ -37,9 +37,8 @@ EXPORTS = {
         "weightings_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
     "flat_hist": {
-        # a, b, w, out, P, N, KA, KB, stream
-        "flat_hist_f32": [P, P, P, P, I, I, I, I, P],
-        "flat_hist_f64": [P, P, P, P, I, I, I, I, P],
+        # a, b, w, out, P, N, KA, KB, wdouble, stream
+        "flat_hist_launch": [P, P, P, P, I, I, I, I, I, P],
     },
     "hist2d": {
         # bi, bj, w, out, N, KI, KJ, stream
