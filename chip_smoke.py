@@ -14,10 +14,11 @@ Phases, each printing one JSON line:
                first 2-D refinement round of one ingest of the main table,
                recorded outside the main run, and on uniform and sorted
                skewed inputs at k2 = 64, 128, 256; the single histogram,
-               K5, at 100,000 and 10,000,000 rows into 256 x 256 bins and
-               at its one-slab and many-slab shapes; K1/K2 at the build
-               caps) and time kernel, plain version and one PyTorch library
-               call;
+               K5, at 100,000 and 10,000,000 rows into 256 x 256 bins, at
+               its one-slab, many-slab and more-than-8-slab shapes and on
+               one row, with its device operations per call; K1/K2 at the
+               build caps) and time kernel, plain version and one PyTorch
+               library call;
   4. main    — ingest the 500,000-row ``flights`` table with the paper's
                defaults (N_s = 100,000, alpha = 0.001, M = 1%), answer 256
                generated queries one at a time and one 64-query serving wave
@@ -84,22 +85,28 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def wall_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean time per call of ``fn`` over ``reps`` warm back-to-back calls,
+def wall_ms(fn, reps: int = 20, warm: int = 3, windows: int = 5) -> float:
+    """Time per call of ``fn`` over ``reps`` warm back-to-back calls,
     between two CUDA events: the device time, or the host's time to issue
-    the call when that is longer."""
+    the call when that is longer; the median of ``windows`` such windows
+    (the host's time varies from window to window)."""
+    import statistics
+
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
 
 
 def _is_device_work(e) -> bool:
@@ -111,12 +118,19 @@ def _is_device_work(e) -> bool:
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3, tries: int = 5) -> float:
-    """Device time per call of ``fn``: the summed durations of the kernels,
-    memsets and copies it puts on the card (``torch.profiler``), over
-    ``reps`` warm calls. Host overhead is not in it. Every call puts at
-    least one operation on the card, so a trace with fewer than ``reps``
-    device events lost some (seen on the card as whole cases reading 0)
-    and is taken again, up to ``tries`` times."""
+    """Device time per call of ``fn`` (``device_profile``)."""
+    return device_profile(fn, reps, warm, tries)[0]
+
+
+def device_profile(fn, reps: int = 20, warm: int = 3,
+                   tries: int = 5) -> tuple[float, float]:
+    """Device time and device operations per call of ``fn``: the summed
+    durations and the number of the kernels, memsets and copies it puts on
+    the card (``torch.profiler``), over ``reps`` warm calls. Host overhead
+    is not in it. Every call puts at least one operation on the card, so a
+    trace with fewer than ``reps`` device events lost some (seen on the
+    card as whole cases reading 0) and is taken again, up to ``tries``
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -131,7 +145,7 @@ def device_ms(fn, reps: int = 20, warm: int = 3, tries: int = 5) -> float:
         if len(work) >= reps:
             break
     total_us = sum(e.time_range.end - e.time_range.start for e in work)
-    return total_us / 1e3 / reps
+    return total_us / 1e3 / reps, len(work) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -326,23 +340,45 @@ def hist_cases(rng) -> list:
     return cases
 
 
-def _single_hist_case(n: int, ki: int, kj: int, weights: str, rng,
-                      clip: bool = False) -> dict:
-    """One K5 comparison: ``weights`` "01" (exact) or "f32" (rtol 1e-5);
-    ``clip`` draws indices up to 2 bins outside the histogram."""
+# K5's cases (rows, KI, KJ, weights, clipped): the reported shape first,
+# then whole-table scale, one slab (with out-of-range rows), many slabs,
+# more than 8 slabs, one row.
+K5_CASES = ((100_000, 256, 256, "f32", False),
+            (SHARDED_N, 256, 256, "01", False),
+            (SHARDED_N, 256, 256, "f32", False),
+            (64_000, 96, 64, "01", True),
+            (1_024, 512, 512, "f32", False),
+            (2_048 * 5 + 3, 2_048, 256, "01", False),
+            (1, 256, 256, "f32", False))
+
+
+def single_hist_inputs(n: int, ki: int, kj: int, weights: str,
+                       clip: bool = False, device="cuda"):
+    """K5 inputs from a seed of the shape: int32 ids uniform over the bins
+    (``clip``: up to 2 bins outside them), ``weights`` "01" (10% zeros) or
+    "f32" uniform in [0, 1)."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng([n, ki, kj])
+    pad = 2 if clip else 0
+    bi, bj = (rng.integers(-pad, k + pad, n, dtype=np.int32) for k in (ki, kj))
+    if weights == "01":
+        w = (rng.random(n) < 0.9).astype(np.float32)
+    else:
+        w = rng.random(n, dtype=np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (bi, bj, w))
+
+
+def _single_hist_case(n: int, ki: int, kj: int, weights: str,
+                      clip: bool = False) -> dict:
+    """One K5 comparison: ``weights`` "01" (exact) or "f32" (rtol 1e-5,
+    atol 1e-6: atomics add in no fixed order); times the kernel, its plain
+    version and ``torch.bincount``, and counts the kernel's device
+    operations per call."""
     import torch
     from repro_torch.kernels.hist2d import hist2d
     from repro_torch.kernels.hist2d.ref import hist2d_ref
-    dev = torch.device("cuda")
-    pad = 2 if clip else 0
-    bi, bj = (torch.as_tensor(rng.integers(-pad, k + pad, n, dtype=np.int32),
-                              device=dev) for k in (ki, kj))
-    if weights == "01":
-        w = torch.as_tensor((rng.random(n) < 0.9).astype(np.float32),
-                            device=dev)
-    else:
-        w = torch.as_tensor(rng.random(n, dtype=np.float32), device=dev)
+    bi, bj, w = single_hist_inputs(n, ki, kj, weights, clip)
     got = hist2d(bi, bj, w, ki, kj)
     want = hist2d_ref(bi, bj, w, ki, kj)
     torch.cuda.synchronize()
@@ -354,14 +390,16 @@ def _single_hist_case(n: int, ki: int, kj: int, weights: str, rng,
     flat = (torch.clamp(bi.to(torch.int64), 0, ki - 1) * kj
             + torch.clamp(bj.to(torch.int64), 0, kj - 1))
     bms, by = bound_ms(n * 12 + ki * kj * 4, n)
-    return dict(_times(lambda: hist2d(bi, bj, w, ki, kj),
-                       lambda: hist2d_ref(bi, bj, w, ki, kj),
-                       lambda: torch.bincount(flat, weights=w,
-                                              minlength=ki * kj)),
-                name="hist2d", n=n, ki=ki, kj=kj, weights=weights,
+    times = _times(lambda: hist2d(bi, bj, w, ki, kj),
+                   lambda: hist2d_ref(bi, bj, w, ki, kj),
+                   lambda: torch.bincount(flat, weights=w,
+                                          minlength=ki * kj))
+    return dict(times, name="hist2d", n=n, ki=ki, kj=kj, weights=weights,
                 clipped=clip, ok=ok, tolerance=tol,
                 max_abs_err=float((got - want).abs().max()), bound_ms=bms,
-                bound_by=by)
+                bound_by=by,
+                device_ops=device_profile(
+                    lambda: hist2d(bi, bj, w, ki, kj))[1])
 
 
 def _single_hist_empty() -> dict:
@@ -472,12 +510,7 @@ def phase_kernels() -> dict:
         args = _weightings_inputs(64, el, 256, 512, rng)
         for kind in ("batched_weightings", "fused_weightings"):
             cases.append(_weightings_case(kind, *args, shape="caps"))
-    # K5: the reported shape first, then whole-table scale, one slab (with
-    # out-of-range rows), many slabs, no rows.
-    cases.append(_single_hist_case(100_000, 256, 256, "f32", rng))
-    cases.append(_single_hist_case(SHARDED_N, 256, 256, "01", rng))
-    cases.append(_single_hist_case(64_000, 96, 64, "01", rng, clip=True))
-    cases.append(_single_hist_case(1_024, 512, 512, "f32", rng))
+    cases += [_single_hist_case(*case) for case in K5_CASES]
     cases.append(_single_hist_empty())
     _check(cases, "kernels")
     return cases

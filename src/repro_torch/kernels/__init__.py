@@ -6,7 +6,8 @@
   * ``hist2d`` / ``subbin`` — the pair-batched 2-D count and chi-squared
     sub-bin histograms of construction, one flat-id histogram kernel;
   * ``hist2d`` also holds the single weighted 2-D histogram (``hist2d``,
-    its own slab-privatised kernel) and its row-sharded form over
+    its own kernel: global atomics into the output for up to 2M rows,
+    shared-memory slabs beyond) and its row-sharded form over
     ``torch.distributed`` (``hist2d_sharded``).
 
 Each package has ``ref.py`` (plain PyTorch) and ``ops.py``, which sends a

@@ -41,8 +41,13 @@ EXPORTS = {
         "flat_hist_launch": [P, P, P, P, I, I, I, I, I, P],
     },
     "hist2d": {
-        # bi, bj, w, out, N, KI, KJ, stream
-        "hist2d_launch": [P, P, P, P, I64, I, I, P],
+        # max_smem*, sms*
+        "hist2d_device": [P, P],
+        # cy, smem, blocks*
+        "hist2d_resident": [I, I64, P],
+        # bi, bj, w, out, N, KI, KJ, n_slabs, slab_rows, n_chunks, cy,
+        # stream
+        "hist2d_launch": [P, P, P, P, I64, I, I, I, I, I, I, P],
     },
 }
 

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.hist2d import batched_hist2d, hist2d
+from repro_torch.kernels.hist2d import ops as hist2d_ops
 from repro_torch.kernels.hist2d.ref import batched_hist2d_ref, hist2d_ref
 from repro_torch.kernels.subbin import batched_subbin_hist
 from repro_torch.kernels.subbin.ref import batched_subbin_hist_ref
@@ -233,11 +234,18 @@ def test_cuda_hist2d_matches_plain(cuda, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,ki,kj", [
     (100_000, 256, 256), (64_000, 96, 64), (1024, 512, 512), (4099, 37, 53),
+    (2_048 * 5 + 3, 2_048, 256), (1, 256, 256),
+    (hist2d_ops.DIRECT_ROWS + 5, 256, 256),
+    (hist2d_ops.DIRECT_ROWS + 5, 37, 53),
 ])
 def test_cuda_single_hist2d_matches_plain(cuda, n, ki, kj):
-    """K5: exact for 0/1 weights, rtol 1e-5 for fp32 ones (atomics add in
-    no fixed order); out-of-range rows clip; an unaligned view takes the
-    scalar loads; no rows, no launch."""
+    """K5 through its public entry: exact for 0/1 weights, rtol 1e-5 for
+    fp32 ones (atomics add in no fixed order); out-of-range rows clip; a
+    view 4 bytes off is read in quads from the 16-byte boundary above it,
+    its first rows as edges; no rows, no launch. Up to ``DIRECT_ROWS`` rows
+    the plan is the slab-free path, beyond it a slab plan (the last two
+    shapes); ``test_cuda_slab_plans_match_plain`` forces slab plans at the
+    smaller shapes."""
     rng = np.random.default_rng(n + ki)
     bi = _t(rng.integers(-2, ki + 2, n).astype(np.int32)).to(cuda)
     bj = _t(rng.integers(-2, kj + 2, n).astype(np.int32)).to(cuda)
@@ -256,6 +264,65 @@ def test_cuda_single_hist2d_matches_plain(cuda, n, ki, kj):
     before = launch_counts()["hist2d"]
     assert not hist2d(bi[:0], bj[:0], wf[:0], ki, kj).any()
     assert launch_counts()["hist2d"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ki,kj", [(4099, 37, 53),
+                                     (2_048 * 5 + 3, 2_048, 256),
+                                     (100_000, 256, 256)])
+@pytest.mark.parametrize("cy", [1, 2])
+def test_cuda_slab_plans_match_plain(cuda, n, ki, kj, cy):
+    """K5's slab path forced below ``DIRECT_ROWS`` (``ops._launch`` with
+    ``ops._slab_plan``'s slabs): several slabs, more than 8 at 2,048 x 256,
+    whose first bins are off a 16-byte boundary at KJ = 53 (the scalar
+    reduction); one cluster and three clusters of cy chunks adding into the
+    zeroed output; aligned views, views 4 bytes off (edge rows) and arrays
+    whose offsets differ (rows one by one). Exact for 0/1 weights, rtol
+    1e-5 for fp32 ones."""
+    rng = np.random.default_rng(n + cy)
+    bi = _t(rng.integers(-2, ki + 2, n + 3).astype(np.int32)).to(cuda)
+    bj = _t(rng.integers(-2, kj + 2, n + 3).astype(np.int32)).to(cuda)
+    w01 = _t((rng.random(n + 3) < 0.9).astype(np.float32)).to(cuda)
+    wf = _t(rng.random(n + 3).astype(np.float32)).to(cuda)
+    base = hist2d_ops._slab_plan(
+        n, ki, kj, hist2d_ops._device(torch.cuda.current_device()))
+    if ki == 2_048:
+        assert base.n_slabs > 8
+    views = [(slice(0, n),) * 3, (slice(1, n + 1),) * 3,
+             (slice(1, n + 1), slice(0, n), slice(3, n + 3))]
+    for clusters in (1, 3):
+        plan = base._replace(n_chunks=clusters * cy, cy=cy)
+        for va, vb, vw in views:
+            a, b, c = bi[va], bj[vb], w01[vw]
+            before = launch_counts()["hist2d"]
+            got = hist2d_ops._launch(a, b, c, ki, kj, plan)
+            torch.cuda.synchronize()
+            assert launch_counts()["hist2d"] == before + 1
+            assert torch.equal(got, hist2d_ref(a, b, c, ki, kj)), (plan, va)
+            c = wf[vw]
+            torch.testing.assert_close(
+                hist2d_ops._launch(a, b, c, ki, kj, plan),
+                hist2d_ref(a, b, c, ki, kj), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_single_hist2d_past_2_31_bins(cuda):
+    """An output of 2^31 bins and more (8 GiB of fp32 counts): the
+    slab-free path indexes it in 64 bits. Rows fall on the first, a middle
+    and the last row of H."""
+    ki, kj, n = (1 << 23) + 1, 256, 5_000
+    rng = np.random.default_rng(31)
+    rows = np.array([0, ki // 2, ki - 1])
+    pick = rng.integers(0, 3, n)
+    bi = _t(rows[pick].astype(np.int32)).to(cuda)
+    bj = _t(rng.integers(0, kj, n).astype(np.int32)).to(cuda)
+    w = _t((rng.random(n) < 0.9).astype(np.float32)).to(cuda)
+    got = hist2d(bi, bj, w, ki, kj)
+    want = hist2d_ref(_t(pick.astype(np.int32)).to(cuda), bj, w, 3, kj)
+    assert torch.equal(got[_t(rows).to(cuda)], want)
+    assert float(got.sum()) == float(w.sum())
+    del got
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
