@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
+``--profile`` traces the main and serve phases' runs with ``torch.profiler``
+(device busy time and idle share per span).
+
 Phases, each printing one JSON line:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
@@ -25,13 +28,25 @@ Phases, each printing one JSON line:
                through ``FastPath.batch``, check every answer against the
                host-NumPy engine and count the kernel launches of this run;
                then K1/K2 once more on the wave's own stacks;
-  5. parity  — build a 60,000-row ``flights`` synopsis on the card and on
+  5. serve   — the main phase's framework behind ``AQPServer(mode="cuda")``:
+               the 256 queries through ``submit`` from 8 client threads
+               (their shapes rarely meet in one admission window, so they
+               run as singles through K2) and the 64-query wave through
+               ``query_batch`` (one fused group through K1), every answer
+               held against an ``AQPServer(mode="numpy")`` on a synopsis
+               built from the same compressed table (rtol 1e-5, atol 1e-6),
+               with each server's per-single execution time from its own
+               trace spans; then the synopsis encoded (``storage.encode``),
+               registered as a cold table and the 256 queries answered again
+               from it in ``"numpy"`` mode (rtol 1e-9 against the warm
+               answers);
+  6. parity  — build a 60,000-row ``flights`` synopsis on the card and on
                the CPU and require them equal field by field;
-  6. sharded — two ``gloo`` ranks in two processes on the one card bin the
+  7. sharded — two ``gloo`` ranks in two processes on the one card bin the
                two halves of 10,000,000 rows with ``hist2d_sharded``; rank 0
                requires the all-reduced counts to equal the plain version
                on the whole input exactly;
-  7. bench   — ``repro_torch.bench.kernels.run`` on the card (its CSV rows
+  8. bench   — ``repro_torch.bench.kernels.run`` on the card (its CSV rows
                print on lines of their own, its JSON goes to
                ``chiprun_out/bench/``).
 
@@ -52,6 +67,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+# record_function spans that ``--profile`` reports (not device work).
+PROFILE_SPANS = ("main.", "serve.")
 
 # H100 SXM peaks (NVIDIA data sheet): device memory and fp32 without tensor
 # cores (the kernels keep fp32 IEEE; construction counts are fp32 adds).
@@ -114,7 +131,7 @@ def _is_device_work(e) -> bool:
     import torch
     return (e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("main."))
+            and not e.name.startswith(PROFILE_SPANS))
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3, tries: int = 5) -> float:
@@ -528,11 +545,11 @@ def _check(cases, phase: str) -> None:
 # --------------------------------------------------------------- phase 4
 
 
-def _close(a, b) -> bool:
+def _close(a, b, rtol: float = 1e-5, atol: float = 1e-6) -> bool:
     import numpy as np
     if a[0] is None or b[0] is None:
         return a == b
-    return bool(np.allclose(a, b, rtol=1e-5, atol=1e-6))
+    return bool(np.allclose(a, b, rtol=rtol, atol=atol))
 
 
 def _drive_main(fw, table, queries, wave_sql) -> dict:
@@ -610,7 +627,7 @@ def phase_main(profile: bool = False) -> dict:
     with prof:
         run = _drive_main(fw, table, queries, wave_sql)
     if profile:
-        _profile_report(prof)
+        _profile_report(prof, "main.", "chip_smoke_profile.json")
     engine, plans, agg_col = run["engine"], run["plans"], run["agg_col"]
     answers, wave, launches = run["answers"], run["wave"], run["launches"]
     single_ms = run["single_ms"]
@@ -664,22 +681,23 @@ def phase_main(profile: bool = False) -> dict:
     if zero:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{zero}")
+    out["serve_inputs"] = (fw, queries, wave_sql)
     return out
 
 
-def _profile_report(prof) -> None:
-    """Per ``main.*`` span of a profiled main path: the device's busy time
+def _profile_report(prof, prefix: str, fname: str) -> None:
+    """Per ``prefix*`` span of a profiled phase: the device's busy time
     (intervals of kernels, memsets and copies merged and clipped to the
     span) and idle share, and device time by name, written to
-    ``chiprun_out/chip_smoke_profile.json``. The profiler's own overhead
-    is inside these numbers."""
+    ``chiprun_out/<fname>``. The profiler's own overhead is inside these
+    numbers."""
     import torch
     events = prof.events()
     work = [e for e in events if _is_device_work(e)]
     kernels = sorted((e.time_range.start, e.time_range.end) for e in work)
     report = {"phase": "profile", "kernel_events": len(kernels), "spans": {}}
     for e in events:
-        if not e.name.startswith("main.") or \
+        if not e.name.startswith(prefix) or \
                 e.device_type == torch.autograd.DeviceType.CUDA:
             continue
         lo, hi = e.time_range.start, e.time_range.end
@@ -704,13 +722,192 @@ def _profile_report(prof) -> None:
         {"name": n[:120], "device_ms": v[0], "count": v[1]}
         for n, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]]
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.json").write_text(
+    (OUT_DIR / fname).write_text(
         json.dumps(report, indent=1))
-    emit({"phase": "profile", "kernel_events": len(kernels),
+    emit({"phase": "profile", "spans_of": prefix,
+          "kernel_events": len(kernels),
           "spans": report["spans"], "top_kernels": report["top_kernels"][:8]})
 
 
 # --------------------------------------------------------------- phase 5
+
+
+SERVE_CLIENTS = 8
+# The serving layer's kernels: K1 for fused groups (the wave), K2 for the
+# singles (the client queries, which rarely share a shape in one window).
+SERVE_KERNELS = ("batched_weightings", "fused_weightings")
+
+
+def _host_framework(fw):
+    """The ``"numpy"`` server's table: a framework without a fast path,
+    built by ``ingest_compressed`` from ``fw``'s compressed table (no
+    second pre-processing or compression; the build is deterministic, so
+    its synopsis is ``fw``'s)."""
+    from repro_torch.aqp.engine import AQPFramework
+    return AQPFramework(fw.params, device=fw.device).ingest_compressed(
+        fw.compressed, fw.preprocessed.columns)
+
+
+def _serve_clients(srv, queries) -> tuple[list, list]:
+    """Answer ``queries`` through ``srv.submit`` from ``SERVE_CLIENTS``
+    threads, each waiting for one answer before it submits the next;
+    returns the answers (in ``queries`` order) and the per-query latencies
+    in ms (submit to answer)."""
+    import threading
+    answers = [None] * len(queries)
+    lat_ms = [0.0] * len(queries)
+    errors = []
+
+    def client(ci):
+        try:
+            for qi in range(ci, len(queries), SERVE_CLIENTS):
+                t = time.perf_counter()
+                res = srv.submit(queries[qi]).result(timeout=120)
+                lat_ms[qi] = (time.perf_counter() - t) * 1e3
+                answers[qi] = res.as_tuple()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serving client never finished")
+    if errors:
+        raise errors[0]
+    return answers, lat_ms
+
+
+def _serve_run(srv, queries, wave_sql, label: str) -> dict:
+    """The 256 queries from the clients, then the 64-query wave through
+    ``query_batch``, each under a ``serve.<label>.*`` profiler span; then
+    the server's own trace read back: its execution spans (``single_exec``
+    per query run alone, ``wave_group`` per fused group) and its stage
+    latencies."""
+    import numpy as np
+    import torch
+    span = torch.profiler.record_function
+    with span(f"serve.{label}.clients"):
+        answers, lat_ms = _serve_clients(srv, queries)
+    t = time.perf_counter()
+    with span(f"serve.{label}.wave"):
+        wave = [r.as_tuple() for r in srv.query_batch(wave_sql)]
+    wave_s = time.perf_counter() - t
+    spans = {}
+    for sp in srv.tracer.spans():
+        spans.setdefault(sp.name, []).append((sp.t1 - sp.t0) * 1e3)
+    single = spans.get("single_exec", [])
+    stages = srv.stats()["totals"]["stages"]
+    return {"answers": answers, "wave": wave, "lat_ms": lat_ms,
+            "wave_s": wave_s, "exec": {
+                "singles": len(single),
+                "single_exec_p50_ms": float(np.percentile(single, 50))
+                if single else None,
+                "single_exec_ms": float(np.sum(single)),
+                "fused_groups": len(spans.get("wave_group", [])),
+                "fused_group_ms": float(np.sum(spans.get("wave_group", []))),
+                "stage_p50_ms": {k: stages[k]["p50_ms"] for k in (
+                    "plan", "admit", "queue", "assemble", "execute",
+                    "resolve")}}}
+
+
+def phase_serve(main_out: dict, card: str, profile: bool = False) -> dict:
+    """The serving stack on the main phase's framework: ``AQPServer`` in
+    ``"cuda"`` mode (the client queries as singles through K2, the wave as
+    one fused group through K1) against one in ``"numpy"`` mode on the same
+    synopsis, both with tracing on; then the synopsis encoded, registered
+    as a cold table and answered again in ``"numpy"`` mode. With
+    ``profile`` both servers' runs are traced by ``torch.profiler``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from repro_torch.core import storage
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.aqp import AQPServer
+    fw, queries, wave_sql = main_out["serve_inputs"]
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    host_fw = _host_framework(fw)
+
+    with prof:
+        # The serving path's run: counters at 0 just before, read just
+        # after.
+        reset_launch_counts()
+        srv = AQPServer(mode="cuda", trace_enabled=True)
+        try:
+            srv.register("t", fw)
+            fused = _serve_run(srv, queries, wave_sql, "cuda")
+            launches = launch_counts()
+            stats = srv.stats()["tables"]["t"]
+        finally:
+            srv.close()
+        host = AQPServer(mode="numpy", trace_enabled=True)
+        try:
+            host.register("t", host_fw)
+            plain = _serve_run(host, queries, wave_sql, "numpy")
+        finally:
+            host.close()
+    if profile:
+        _profile_report(prof, "serve.", "chip_smoke_profile_serve.json")
+
+    host = AQPServer(mode="numpy")
+    try:
+        host.register("t", host_fw)
+        blob = storage.encode(fw.synopsis)
+        host.register_cold("t_cold", blob)
+        cold_sql = [q.replace(" FROM t ", " FROM t_cold ") for q in queries]
+        cold, _ = _serve_clients(host, cold_sql)
+        decode_s = host.catalog.resolve("t_cold").timings["cold_decode_s"]
+    finally:
+        host.close()
+
+    mismatched = [(q, g, w) for q, g, w in zip(
+        queries + wave_sql, fused["answers"] + fused["wave"],
+        plain["answers"] + plain["wave"]) if not _close(g, w)]
+    cold_mismatched = [(q, g, w) for q, g, w in zip(
+        cold_sql, cold, plain["answers"]) if not _close(g, w, 1e-9, 0.0)]
+    lat = fused["lat_ms"]
+    out = {
+        "phase": "serve", "card": card,
+        "queries": len(queries), "clients": SERVE_CLIENTS,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "numpy_p50_ms": float(np.percentile(plain["lat_ms"], 50)),
+        "numpy_p99_ms": float(np.percentile(plain["lat_ms"], 99)),
+        "wave_queries": len(wave_sql), "wave_s": fused["wave_s"],
+        "wave_qps": len(wave_sql) / fused["wave_s"],
+        "numpy_wave_qps": len(wave_sql) / plain["wave_s"],
+        "exec": fused["exec"], "numpy_exec": plain["exec"],
+        "batched": stats["batched"], "fallback": stats["fallback"],
+        "kernel_launches": {k: launches[k] for k in SERVE_KERNELS},
+        "mismatches": len(mismatched),
+        "blob_bytes": len(blob), "eq12_bound": storage.eq12_bound(
+            fw.synopsis), "decode_s": decode_s,
+        "cold_mismatches": len(cold_mismatched),
+    }
+    emit(out)
+    if mismatched:
+        raise AssertionError(f"cuda server differs from the numpy "
+                             f"server: {mismatched[:5]}")
+    if cold_mismatched:
+        raise AssertionError(f"cold tier differs from the warm numpy "
+                             f"answers: {cold_mismatched[:5]}")
+    if stats["batched"] <= 0:
+        raise AssertionError("the server never took the fused path")
+    zero = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"kernels never launched by the server: "
+                             f"{zero}")
+    return out
+
+
+# --------------------------------------------------------------- phase 6
 
 
 def phase_parity() -> None:
@@ -745,7 +942,7 @@ def phase_parity() -> None:
         raise AssertionError(f"card and CPU synopses differ: {diffs}")
 
 
-# --------------------------------------------------------------- phase 6
+# --------------------------------------------------------------- phase 7
 
 
 def _sharded_run(rank: int, world: int, init_file: str, device: str,
@@ -855,7 +1052,7 @@ def phase_sharded(device: str = "cuda:0", n: int = SHARDED_N) -> list:
     return ranks
 
 
-# --------------------------------------------------------------- phase 7
+# --------------------------------------------------------------- phase 8
 
 
 def phase_bench() -> int:
@@ -883,8 +1080,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main path's run with torch.profiler "
-                         "(device busy time and idle share per span)")
+                    help="trace the main and serve phases' runs with "
+                         "torch.profiler (device busy time and idle share "
+                         "per span)")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -901,6 +1099,7 @@ def main(argv=None) -> int:
         phase_build()
         cases = phase_kernels()
         main_out = phase_main(args.profile)
+        serve_out = phase_serve(main_out, info["nvidia_smi"], args.profile)
         phase_parity()
         ranks = phase_sharded()
         bench_launches = phase_bench()
@@ -910,8 +1109,9 @@ def main(argv=None) -> int:
     # Reported shapes: K1/K2 on the main path's own wave inputs, K3/K4 on
     # the main path's own first launches (both ``shape`` "main"); K5 at the
     # bench's 100,000 rows x 256 x 256, fp32 weights. max_abs_err is the
-    # largest over every case of the kernel. K5's launches are those of the
-    # sharded ranks and the bench.
+    # largest over every case of the kernel. K1/K2's launches are those of
+    # the main phase and the serve phase; K5's those of the sharded ranks
+    # and the bench.
     cases = cases + main_out["kernel_cases"]
     report = {c["name"]: c for c in cases if c.get("shape") == "main"}
     for c in cases:
@@ -920,6 +1120,8 @@ def main(argv=None) -> int:
             report[c["name"]] = c
     launches = dict(main_out["launches"],
                     hist2d=bench_launches + sum(r["launches"] for r in ranks))
+    for name, n in serve_out["kernel_launches"].items():
+        launches[name] += n
     kernels = []
     for name in TPU_KERNELS:
         c = report[name]

@@ -14,8 +14,7 @@ updated immediately; synopsis marked stale and rebuilt lazily) — the paper's
 "more frequent updates" story.
 
 The synopsis is built on ``device`` (``None``: the CUDA device, raising
-without one; ``"cpu"`` runs the kernels' plain versions). Storage reports
-wait for the port of the storage codec.
+without one; ``"cpu"`` runs the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import types
 
 import numpy as np
 
+from repro_torch.core import storage as storagemod
 from repro_torch.core.build import build_pairwise_hist
 from repro_torch.core.query import QueryEngine, QueryResult
 from repro_torch.core.types import BuildParams
@@ -210,11 +210,17 @@ class AQPFramework:
     # -------------------------------------------------------------- reports
 
     def storage_report(self) -> dict:
-        raise NotImplementedError(
-            "storage reports need the storage codec, which is not ported "
-            "yet: ROADMAP.md Queue 1, item 1")
+        rep = {"synopsis": storagemod.synopsis_size_report(self.synopsis)}
+        if self.compressed is not None:
+            rep["compressed_data_bytes"] = self.compressed.size_bytes()
+            rep["raw_data_bytes"] = self.compressed.raw_size_bytes()
+            rep["compression_ratio"] = (self.compressed.raw_size_bytes()
+                                        / max(self.compressed.size_bytes(), 1))
+            rep["total_with_synopsis"] = (rep["compressed_data_bytes"]
+                                          + rep["synopsis"]["total"])
+            rep["total_storage_reduction"] = (rep["raw_data_bytes"]
+                                              / max(rep["total_with_synopsis"], 1))
+        return rep
 
     def size_bytes(self) -> int:
-        raise NotImplementedError(
-            "synopsis sizes need the storage codec, which is not ported "
-            "yet: ROADMAP.md Queue 1, item 1")
+        return storagemod.synopsis_size_report(self.synopsis)["total"]

@@ -221,7 +221,8 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     grids; a pair whose capacity guard binds on a lower rung is drained,
     discarded and re-queued one rung up. Pairs that finished at the same
     capacity share one ``pair_metadata_batch`` call. ``stats`` receives the
-    launch shapes and the round ledger; a ``timeline`` gets one
+    launch shapes and the round ledger (rounds, pair-rounds, and rounds
+    by active-slot count in ``occupancy_hist``); a ``timeline`` gets one
     ``compact_launch`` interval per rung and a ``rung_escalation`` marker
     when pairs move up.
     """
@@ -234,7 +235,8 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     slots = _pow2_floor(int(params.pair_chunk))
     group_cap = slots * _COMPACT_QUEUE
     launches = []
-    comp = {"loop_rounds": 0, "pair_rounds": 0, "escalated_pairs": 0}
+    comp = {"loop_rounds": 0, "pair_rounds": 0, "escalated_pairs": 0,
+            "occupancy_hist": {}}
     raw_pairs = {}
 
     for start in range(0, len(keys), group_cap):
@@ -271,7 +273,8 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
             drain_capped = cap < K2
             t_launch = time.perf_counter()
             idx = torch.as_tensor(pend, dtype=torch.int64, device=device)
-            ledger = {"loop_rounds": 0, "pair_rounds": 0}
+            ledger = {"loop_rounds": 0, "pair_rounds": 0,
+                      "occupancy_hist": comp["occupancy_hist"]}
             oex, oey, okx, oky, ocap, _ornd = refine.refine_2d_compact(
                 tuple(arr[idx] for arr in pres),
                 _stack_edges([hists[part[gid][0]].edges for gid in pend],
@@ -300,7 +303,8 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
                 timeline.add("compact_launch", t_launch, time.perf_counter(),
                              cap=cap, slots=min(slots, len(pend)),
                              pairs=len(pend), escalated=escalated,
-                             **ledger)
+                             loop_rounds=ledger["loop_rounds"],
+                             pair_rounds=ledger["pair_rounds"])
                 if escalated:
                     timeline.event("rung_escalation", from_cap=cap,
                                    to_cap=ladder[rung_i + 1],

@@ -5,12 +5,13 @@ chi-squared statistic over ``s = ceil((2u)^(1/3))`` sub-bins (Terrell–Scott,
 Eq. 2–3) at significance ``alpha``.
 
 Critical values chi2_alpha(df) gate every split (``stat > crit``) and are
-written into the weighted-centre bounds, so a synopsis is only bit-identical
-to the reference package's if the table is too. For the paper's
-``alpha = 0.001`` and ``s <= 128`` the table is therefore checked in
-(``repro_torch.core.crit_table``, exact ``float.hex`` literals of the
-reference's values). Any other alpha runs the same Wilson–Hilferty-bracketed
-bisection on the regularized upper incomplete gamma as the reference, on
+written into the weighted-centre bounds (at build and at storage decode), so
+a synopsis is only bit-identical to the reference package's if the table is
+too. For every alpha the repo uses (0.01, 0.001 and 0.0001) and ``s <= 256``
+the tables are therefore checked in (``repro_torch.core.crit_table``, exact
+``float.hex`` literals of the reference's values). Any other alpha, or a
+longer table, runs the same Wilson–Hilferty-bracketed bisection on the
+regularized upper incomplete gamma as the reference, on
 ``torch.special.gammaincc`` — whose last bits differ from the reference's
 gamma function, so such a table may differ from the reference's in the last
 ulp.
@@ -66,13 +67,15 @@ def build_crit_table(alpha: float, s_max: int) -> np.ndarray:
     ``table[s] = chi2_isf(alpha, df=s-1)`` for s >= 2; entries for s < 2 are
     +inf (a bin with a single sub-bin can never fail the test — it also can
     never be split, matching RefineBin1D's u == 1 early-out). The checked-in
-    table serves ``alpha == CRIT_ALPHA`` up to ``CRIT_S_MAX``; anything else
-    is bisected here.
+    tables serve alpha 0.01, 0.001 and 0.0001 up to ``CRIT_S_MAX`` (256),
+    bit for bit the reference's; any other alpha or a longer table is
+    bisected here and may differ from the reference's in the last ulp.
     """
     if s_max < 2:
         raise ValueError("s_max must be >= 2")
-    if alpha == _crit.CRIT_ALPHA and s_max <= _crit.CRIT_S_MAX:
-        return np.array([float.fromhex(v) for v in _crit.CRIT_HEX[:s_max + 1]],
+    hexes = _crit.CRIT_HEX.get(alpha)
+    if hexes is not None and s_max <= _crit.CRIT_S_MAX:
+        return np.array([float.fromhex(v) for v in hexes[:s_max + 1]],
                         np.float64)
     table = np.full(s_max + 1, np.inf, dtype=np.float64)
     s = np.arange(2, s_max + 1, dtype=np.float64)

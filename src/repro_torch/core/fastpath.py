@@ -11,8 +11,7 @@ version when the ``FastPath`` was made with ``device="cpu"``.
 group of queries sharing a plan shape (same agg column, same pair-predicate
 column set) executes as ONE launch covering every query and all three bound
 variants — the serving-layer analogue of the per-predicate fusion, used by
-the reference's ``serve.aqp.scheduler.BatchScheduler`` (the serving layer
-is not ported yet).
+``repro_torch.serve.aqp.scheduler.BatchScheduler``.
 
 Supported: AND trees of leaves (the dominant template in the paper's
 workload). OR / nested trees return None -> engine falls back to the NumPy
@@ -288,3 +287,9 @@ class FastPath:
                 triple.append(w)
             out.append(_widen_clip(*triple, ph, h, corrected))
         return out
+
+
+def make_fastpath(device=None) -> FastPath:
+    """Returns the engine hook (kept for parity with the reference's
+    ``make_fastpath``); ``device=None`` means the CUDA device."""
+    return FastPath(device=device)

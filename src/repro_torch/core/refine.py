@@ -386,8 +386,9 @@ def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,
 
     Returns (ex, ey, kx, ky, capped, rounds) per pair: (G, k2+1) tensors on
     the device and host lists kx/ky/capped/rounds. ``stats`` (optional)
-    accumulates ``loop_rounds`` (rounds run) and ``pair_rounds`` (pair
-    refinements run, summed over rounds).
+    accumulates ``loop_rounds`` (rounds run), ``pair_rounds`` (pair
+    refinements run, summed over rounds) and ``occupancy_hist`` (active
+    slots -> rounds run with that many).
     """
     g = ex0.shape[0]
     dev = ex0.device
@@ -419,6 +420,8 @@ def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,
         if stats is not None:
             stats["loop_rounds"] += 1
             stats["pair_rounds"] += len(slot_pair)
+            occ = stats.setdefault("occupancy_hist", {})
+            occ[len(slot_pair)] = occ.get(len(slot_pair), 0) + 1
         keep, done = [], []
         for si in range(len(slot_pair)):
             srnd[si] += 1

@@ -79,7 +79,11 @@ def mixed():
     dict(k2_cap=64, s2_max=16, pair_chunk=1),          # one slot
     dict(k2_cap=8, s2_max=16, pair_chunk=4),           # K2-capped guard
     dict(k2_cap=128, s2_max=16, pair_chunk=4, k2_start=4),  # ladder escalation
-], ids=["compact", "one_slot", "k2_capped", "escalation"])
+    # F1: the checked-in crit tables at the other alphas the repo uses.
+    dict(k2_cap=64, s2_max=16, pair_chunk=4, alpha=0.01),
+    dict(k2_cap=64, s2_max=16, pair_chunk=4, alpha=0.0001),
+], ids=["compact", "one_slot", "k2_capped", "escalation", "alpha_0.01",
+        "alpha_0.0001"])
 def test_build_bit_identical_to_reference(mixed, params_kw):
     params_kw = dict(params_kw, n_samples=mixed.shape[0])
     ref = _ref_build(mixed, params_kw)

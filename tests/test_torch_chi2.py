@@ -1,7 +1,7 @@
 """The port's chi-squared machinery against the reference package.
 
 Run as a script with ``--write`` to regenerate the checked-in critical-value
-table of the port from the reference:
+tables of the port from the reference:
 
     PYTHONPATH=src python tests/test_torch_chi2.py --write
 """
@@ -14,64 +14,79 @@ import torch
 
 CRIT_MODULE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
                / "core" / "crit_table.py")
-CRIT_ALPHA = 0.001
-CRIT_S_MAX = 128
+CRIT_ALPHAS = (0.01, 0.001, 0.0001)
+CRIT_S_MAX = 256
 
 
-def render_crit_module(table) -> str:
-    """Source of ``repro_torch/core/crit_table.py`` for a reference table."""
-    rows = "\n".join(f'    "{float(v).hex()}",' for v in table)
-    return f'''"""Chi-squared critical values for alpha = {CRIT_ALPHA}, s = 0 .. {CRIT_S_MAX}.
+def render_crit_module(tables) -> str:
+    """Source of ``repro_torch/core/crit_table.py`` for reference tables,
+    ``{alpha: table}``."""
+    blocks = "".join(
+        f"    {alpha!r}: (\n"
+        + "".join(f'        "{float(v).hex()}",\n' for v in table)
+        + "    ),\n" for alpha, table in tables.items())
+    return f'''"""Chi-squared critical values for alpha in {CRIT_ALPHAS}, s = 0 .. {CRIT_S_MAX}.
 
-``CRIT_HEX[s] = chi2_isf(alpha, df=s-1)`` as exact ``float.hex`` literals,
-+inf for s < 2. Generated from the reference package's
+``CRIT_HEX[alpha][s] = chi2_isf(alpha, df=s-1)`` as exact ``float.hex``
+literals, +inf for s < 2. Generated from the reference package's
 ``repro.core.chi2.build_crit_table`` by
 
     PYTHONPATH=src python tests/test_torch_chi2.py --write
 
-(do not edit by hand); ``tests/test_torch_chi2.py`` regenerates the table
-and compares it bit for bit.
+(do not edit by hand); ``tests/test_torch_chi2.py`` regenerates the tables
+and compares them bit for bit.
 """
 
-CRIT_ALPHA = {CRIT_ALPHA!r}
 CRIT_S_MAX = {CRIT_S_MAX}
-CRIT_HEX = (
-{rows}
-)
+CRIT_HEX = {{
+{blocks}}}
 '''
 
 
-def _reference_table():
+def _reference_tables():
     from repro.core import chi2 as ref_chi2
-    return ref_chi2.build_crit_table(CRIT_ALPHA, CRIT_S_MAX)
+    return {alpha: ref_chi2.build_crit_table(alpha, CRIT_S_MAX)
+            for alpha in CRIT_ALPHAS}
+
+
+def _reference_table():
+    """The reference's table at the paper's alpha = 0.001, s <= 128."""
+    from repro.core import chi2 as ref_chi2
+    return ref_chi2.build_crit_table(0.001, 128)
 
 
 def test_crit_table_bit_identical_to_reference():
-    """H1: the checked-in table is the reference's, bit for bit, and the
-    module on disk is exactly what ``--write`` would produce."""
+    """H1/F1: the checked-in tables are the reference's, bit for bit, at
+    every alpha the repo uses, and the module on disk is exactly what
+    ``--write`` would produce."""
     from repro_torch.core import chi2
-    ref = _reference_table()
-    got = chi2.build_crit_table(CRIT_ALPHA, CRIT_S_MAX)
-    assert got.dtype == np.float64
-    assert [v.hex() for v in got.tolist()] == [v.hex() for v in ref.tolist()]
+    ref = _reference_tables()
+    for alpha, want in ref.items():
+        got = chi2.build_crit_table(alpha, CRIT_S_MAX)
+        assert got.dtype == np.float64
+        assert [v.hex() for v in got.tolist()] == \
+            [v.hex() for v in want.tolist()]
     assert CRIT_MODULE.read_text() == render_crit_module(ref)
 
 
-@pytest.mark.parametrize("s_max", [2, 16, 32, 128])
-def test_crit_table_prefixes(s_max):
+@pytest.mark.parametrize("alpha", CRIT_ALPHAS)
+@pytest.mark.parametrize("s_max", [2, 16, 32, 128, 256])
+def test_crit_table_prefixes(alpha, s_max):
+    """F1: bit-identical at alpha 0.01, 0.001 and 0.0001 for every s_max up
+    to the tables' 256 (before, only alpha = 0.001 with s <= 128 was)."""
     from repro.core import chi2 as ref_chi2
     from repro_torch.core import chi2
-    np.testing.assert_array_equal(chi2.build_crit_table(CRIT_ALPHA, s_max),
-                                  ref_chi2.build_crit_table(CRIT_ALPHA, s_max))
+    np.testing.assert_array_equal(chi2.build_crit_table(alpha, s_max),
+                                  ref_chi2.build_crit_table(alpha, s_max))
 
 
 def test_crit_table_other_alpha_bisects_close_to_reference():
-    """Other alphas run the bisection on torch's gammaincc: the same
-    quantiles up to the last bits of the two gamma functions."""
+    """An alpha outside the tables runs the bisection on torch's gammaincc:
+    the same quantiles up to the last bits of the two gamma functions."""
     from repro.core import chi2 as ref_chi2
     from repro_torch.core import chi2
-    got = chi2.build_crit_table(0.01, 40)
-    want = ref_chi2.build_crit_table(0.01, 40)
+    got = chi2.build_crit_table(0.05, 40)
+    want = ref_chi2.build_crit_table(0.05, 40)
     assert np.isinf(got[:2]).all()
     np.testing.assert_allclose(got[2:], want[2:], rtol=1e-12)
 
@@ -181,5 +196,5 @@ def test_bin_chi2_statistic_bit_identical():
 if __name__ == "__main__":
     if sys.argv[1:] != ["--write"]:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_chi2.py --write")
-    CRIT_MODULE.write_text(render_crit_module(_reference_table()))
+    CRIT_MODULE.write_text(render_crit_module(_reference_tables()))
     print(f"wrote {CRIT_MODULE}")

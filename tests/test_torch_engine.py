@@ -87,11 +87,11 @@ def test_ingest_compressed_matches_reference(small_table):
 
 
 def test_storage_reports_wait_for_the_codec(frameworks):
-    _ref, port = frameworks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.storage_report()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.size_bytes()
+    """The codec is ported: the storage report and synopsis size are the
+    reference's on the same table (the synopses are bit-identical)."""
+    ref, port = frameworks
+    assert port.storage_report() == ref.storage_report()
+    assert port.size_bytes() == ref.size_bytes() > 0
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -102,8 +102,9 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Import every module of the port in a fresh interpreter: no ``jax``
-    and no ``repro`` module may be loaded."""
+    """Import every module of the port in a fresh interpreter (the storage
+    codec, ``obs`` and ``serve.aqp`` included): no ``jax`` and no ``repro``
+    module may be loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import repro_torch
@@ -115,7 +116,9 @@ def test_port_imports_neither_jax_nor_reference():
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad)
-        assert len(names) >= 25 and not bad, bad
+        # 50 modules with the storage codec, obs and serve.aqp: a module
+        # that goes missing later shows here.
+        assert len(names) >= 50 and not bad, (len(names), bad)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC),
