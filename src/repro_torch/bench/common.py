@@ -1,5 +1,6 @@
-"""Shared utilities of the port's benchmarks: the CSV row format, a timer
-and JSON results that name the device they were measured on."""
+"""Shared utilities of the port's benchmarks: the CSV row format, a timer,
+an engine sweep over queries and JSON results that name the device they
+were measured on."""
 from __future__ import annotations
 
 import json
@@ -7,6 +8,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # Results go under the checkout's gitignored build directory.
@@ -65,3 +67,36 @@ def time_us(fn, device: torch.device, reps: int = 20, warm: int = 2) -> float:
         fn()
     sync()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def eval_engine(query_fn, queries, exact_engine) -> dict:
+    """Run ``queries`` through ``query_fn`` against ``exact_engine``: error,
+    latency (host wall time per query), bounds-correctness and bound-width
+    summaries, plus the per-query errors under ``errs``."""
+    from repro_torch.aqp.queries import relative_error
+    errs, lats, bok, widths = [], [], [], []
+    for sql in queries:
+        exact = exact_engine.query(sql)
+        t0 = time.perf_counter()
+        out = query_fn(sql)
+        lats.append(time.perf_counter() - t0)
+        if isinstance(out, tuple):
+            est, lo, hi = out
+        else:
+            est, lo, hi = out.estimate, out.lower, out.upper
+        errs.append(relative_error(est, exact))
+        if lo is not None and hi is not None and exact is not None:
+            bok.append(lo - 1e-9 <= exact <= hi + 1e-9)
+            if exact != 0:
+                widths.append(abs(hi - lo) / abs(exact) * 100.0)
+    return {
+        "median_err": float(np.median(errs)) if errs else None,
+        "mean_err": float(np.mean(errs)) if errs else None,
+        "p90_err": float(np.percentile(errs, 90)) if errs else None,
+        "errs": errs,
+        "median_latency_ms": float(np.median(lats) * 1e3),
+        "bounds_correct_pct": (float(np.mean(bok) * 100.0) if bok else None),
+        "median_bound_width_pct": (float(np.median(widths)) if widths
+                                   else None),
+        "n_queries": len(queries),
+    }

@@ -5,9 +5,12 @@
 
 Prints ``name,us_per_call,derived`` CSV rows and writes JSON results, each
 naming its device and card, to ``DIR`` (``build/bench_torch/`` by default).
-Runs on the CUDA device unless ``--device cpu``. Of the reference's suites
-only ``kernels`` is ported; asking for another fails with an error that
-names the ROADMAP item it waits for.
+Runs on the CUDA device unless ``--device cpu``; without a card a suite
+raises, it never falls back to the CPU. Every suite of the reference is
+ported (``construction``, ``kernels``, ``storage``, ``serving``, ``fig8``,
+``fig9``, ``table5``, ``table6``, ``fig11``) except ``roofline``, which
+reads the LM stack's dry-run artifacts and raises with the ROADMAP item it
+waits for.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import traceback
 
 SUITES = ("construction", "kernels", "storage", "serving", "fig8", "fig9",
           "table5", "table6", "fig11", "roofline")
-PORTED = {"kernels": "repro_torch.bench.kernels"}
+PORTED = {name: f"repro_torch.bench.{name}" for name in SUITES
+          if name != "roofline"}
 
 
 def suite(name: str):
@@ -29,7 +33,7 @@ def suite(name: str):
     if name not in PORTED:
         raise NotImplementedError(
             f"suite {name!r} is not ported to repro_torch yet: ROADMAP.md "
-            f"Queue 1, item 5 (port-side bench entry points)")
+            f"Queue 1, item 6 (the LM-side stack and its dry run)")
     return importlib.import_module(PORTED[name])
 
 

@@ -6,25 +6,29 @@ Pipeline (the reference package's, step for step):
   2. all columns at once: one host ``np.sort(axis=0)`` + vectorized
      unique-prefix, then ``refine.refine_1d`` with the columns as a batch
      dimension on the device;
-  3. pair-batched 2-D refinement with the convergence-compacting scheduler
-     (``build_pairs_compact`` / ``refine.refine_2d_compact``): per-column
-     presorts are shared across pairs (``_column_ranks``, host NumPy), a
-     group of pairs is uploaded once, ``pair_chunk`` slots refine it with
-     drain/backfill on the host, and capacity-guard escalation re-queues
-     only the capped pairs one rung up the k2 ladder. Per-round bin counts
-     run through ``repro_torch.kernels.hist2d`` and chi-squared sub-bin
-     counts through ``repro_torch.kernels.subbin`` — CUDA kernels when the
-     build runs on the card;
+  3. pair histograms under one of three schedulers (``BuildParams``),
+     bit-for-bit equal to one another:
+       * convergence-compacting (the default; ``build_pairs_compact`` /
+         ``refine.refine_2d_compact``): per-column presorts are shared
+         across pairs (``_column_ranks``, host NumPy), a group of pairs is
+         uploaded once, ``pair_chunk`` slots refine it with drain/backfill
+         on the host, and capacity-guard escalation re-queues only the
+         capped pairs one rung up the k2 ladder;
+       * fixed chunk (``compact_drain=False``; ``build_pairs_batched`` /
+         ``refine.build_pairs_device``): chunks of ``pair_chunk`` pairs
+         refine until their slowest pair converges, and a chunk whose
+         guard binds re-runs whole one rung up;
+       * per pair (``pair_batched=False``; ``build_pairs_sequential`` /
+         ``refine.refine_2d``): the reference's oracle and benchmark
+         baseline, one pair and one host check a round at a time.
+     The batched two count through ``repro_torch.kernels.hist2d`` and
+     ``repro_torch.kernels.subbin`` — CUDA kernels when the build runs on
+     the card;
   4. the 1-D grids are refined to the union of their pairs' edges and the
      fold maps are computed (host NumPy + one batched metadata call).
 
 Missing values (NaN) are excluded per-histogram, as in SQL. The result is
 bit-for-bit the reference's synopsis for the same input and parameters.
-
-Not ported yet (they raise ``NotImplementedError``; see ROADMAP.md): the
-fixed-chunk scheduler (``compact_drain=False``) and the sequential per-pair
-loop (``pair_batched=False``), which the reference holds bit-identical to
-the compact scheduler.
 """
 from __future__ import annotations
 
@@ -127,6 +131,37 @@ def _trim_pair(ex, ey, kx, ky, H, hx, ux, vminx, vmaxx, hy, uy, vminy,
     )
 
 
+def build_pairs_sequential(sample: np.ndarray, hists: list, params, crit2,
+                           m_pts: int, device) -> dict:
+    """Per-pair host loop: ``refine.refine_2d`` and ``refine.pair_metadata``
+    on one pair after another, at capacity ``k2_cap``, with one host check
+    a round and one transfer a pair.
+
+    The reference's bit-for-bit oracle for the batched schedulers and the
+    benchmarks' baseline. Returns {(a, b): PairHist} without fold maps.
+    """
+    K2 = params.k2_cap
+    cols = torch.as_tensor(np.ascontiguousarray(
+        np.nan_to_num(sample, nan=0.0).T), dtype=torch.float64, device=device)
+    nanmask = np.isnan(sample)
+    raw_pairs = {}
+    for a, b in _pair_keys(sample.shape[1]):
+        valid = torch.as_tensor(~(nanmask[:, a] | nanmask[:, b]),
+                                device=device)
+        ex0 = torch.as_tensor(_pad_edges(hists[a].edges, K2), device=device)
+        ey0 = torch.as_tensor(_pad_edges(hists[b].edges, K2), device=device)
+        ex, ey, kx, ky = refine.refine_2d(
+            cols[a], cols[b], valid, ex0, ey0, min(int(hists[a].k), K2),
+            min(int(hists[b].k), K2), float(m_pts), crit2, k2=K2,
+            s_max=params.s2_max, max_rounds=params.max_rounds_2d)
+        out = refine.pair_metadata(cols[a], cols[b], valid, ex, ey, kx, ky,
+                                   k2=K2)
+        raw_pairs[(a, b)] = _trim_pair(
+            ex.cpu().numpy(), ey.cpu().numpy(), kx, ky,
+            *(v.cpu().numpy() for v in out))
+    return raw_pairs
+
+
 def _column_ranks(sample_nn: np.ndarray) -> np.ndarray:
     """Per-column dense ranks (d, N): ties share a rank, order preserved.
 
@@ -187,6 +222,12 @@ def _pow2_floor(n: int) -> int:
     return 1 << (max(1, n).bit_length() - 1)
 
 
+def _pow2_ceil(n: int) -> int:
+    """Smallest power of two >= n: the fixed-chunk launch-size rule (a
+    tail chunk pads up with dummy lanes, as in the reference)."""
+    return 1 << max(0, n - 1).bit_length()
+
+
 def _cap_ladder(need: int, k2_cap: int, k2_start: int) -> list[int]:
     """Doubling capacity ladder: smallest rung fitting ``need`` up to k2_cap."""
     c = max(2, k2_start)
@@ -200,9 +241,98 @@ def _cap_ladder(need: int, k2_cap: int, k2_start: int) -> list[int]:
     return ladder
 
 
+def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
+                        m_pts: int, device, stats: dict | None = None,
+                        timeline: BuildTimeline | None = None) -> dict:
+    """Fixed-chunk 2-D construction: chunked (P, N) launches, one grouped
+    device->host transfer per chunk. Returns {(a, b): PairHist} without
+    fold maps; records each launch's (size, capacity) into
+    ``stats["pair_launches"]`` and, when a ``timeline`` is passed, one
+    ``batched_launch`` interval per launch (its metadata included) and a
+    ``pair_presort`` and a ``pair_upload`` interval per chunk.
+
+    Each chunk refines at the smallest capacity rung that fits its initial
+    grids; if any pair's capacity guard binds, the whole chunk re-runs one
+    rung up (results are capacity-independent while the guard is slack).
+    The host reads one flag a round (``refine.refine_2d_batch``) and the
+    capped flags once a launch.
+    """
+    K2 = params.k2_cap
+    n_s, d = sample.shape
+    keys = _pair_keys(d)
+    sample_nn = np.nan_to_num(sample, nan=0.0)
+    nanmask = np.isnan(sample)
+    # The chunk cap rounds DOWN to a power of two (the memory bound); the
+    # tail chunk pads up to the next power of two >= its size.
+    chunk = _pow2_floor(int(params.pair_chunk))
+    launches = []
+    raw_pairs = {}
+    for start in range(0, len(keys), chunk):
+        t_presort = time.perf_counter()
+        part = keys[start:start + chunk]
+        size = _pow2_ceil(len(part))
+        x = np.zeros((size, n_s), np.float64)
+        y = np.zeros((size, n_s), np.float64)
+        valid = np.zeros((size, n_s), bool)
+        kx0 = np.ones(size, np.int64)
+        ky0 = np.ones(size, np.int64)
+        for p, (a, b) in enumerate(part):
+            x[p] = sample_nn[:, a]
+            y[p] = sample_nn[:, b]
+            valid[p] = ~(nanmask[:, a] | nanmask[:, b])
+            kx0[p] = min(int(hists[a].k), K2)
+            ky0[p] = min(int(hists[b].k), K2)
+        pres = _upload_presort(_presort_pairs_host(x, y, valid), device,
+                               timeline, t_presort, len(part))
+        need = int(max(kx0.max(), ky0.max()))
+        for cap in _cap_ladder(need, K2, params.k2_start):
+            t_launch = time.perf_counter()
+            ex0 = np.full((size, cap + 1), np.inf, np.float64)
+            ey0 = np.full((size, cap + 1), np.inf, np.float64)
+            ex0[:, :2] = 0.0
+            ey0[:, :2] = 0.0  # dummy lanes: one empty bin, no valid rows
+            for p, (a, b) in enumerate(part):
+                ex0[p] = _pad_edges(hists[a].edges, cap)
+                ey0[p] = _pad_edges(hists[b].edges, cap)
+            out = refine.build_pairs_device(
+                *pres, torch.as_tensor(ex0, device=device),
+                torch.as_tensor(ey0, device=device),
+                torch.as_tensor(kx0, device=device),
+                torch.as_tensor(ky0, device=device), float(m_pts), crit2,
+                k2=cap, s_max=params.s2_max, max_rounds=params.max_rounds_2d)
+            host = [v.cpu().numpy() for v in out]   # the chunk's transfer
+            launches.append((size, cap))
+            if timeline is not None:
+                timeline.add("batched_launch", t_launch, time.perf_counter(),
+                             cap=cap, size=size, pairs=len(part))
+            capped = host[4]
+            if cap >= K2 or not capped[: len(part)].any():
+                break
+        fields = host[:4] + host[5:]    # drop the capped flag
+        for p, (a, b) in enumerate(part):
+            raw_pairs[(a, b)] = _trim_pair(*(v[p] for v in fields))
+    if stats is not None:
+        stats["pair_launches"] = launches
+    return raw_pairs
+
+
 # Pairs uploaded to the device per group, in units of the slot count: the
 # compaction horizon and the (group * N) presort-upload memory bound.
 _COMPACT_QUEUE = 4
+
+
+def _upload_presort(host: tuple, device, timeline, t_presort: float,
+                    pairs: int) -> tuple:
+    """Upload a group's host presort; a ``timeline`` gets a
+    ``pair_presort`` interval (gather and sort, from ``t_presort``) and a
+    ``pair_upload`` interval (the copies, which wait for the device)."""
+    t_upload = time.perf_counter()
+    pres = tuple(torch.as_tensor(arr, device=device) for arr in host)
+    if timeline is not None:
+        timeline.add("pair_presort", t_presort, t_upload, pairs=pairs)
+        timeline.add("pair_upload", t_upload, time.perf_counter(),
+                     pairs=pairs)
+    return pres
 
 
 def _stack_edges(rows, cap: int, device) -> torch.Tensor:
@@ -221,25 +351,33 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     grids; a pair whose capacity guard binds on a lower rung is drained,
     discarded and re-queued one rung up. Pairs that finished at the same
     capacity share one ``pair_metadata_batch`` call. ``stats`` receives the
-    launch shapes and the round ledger (rounds, pair-rounds, and rounds
-    by active-slot count in ``occupancy_hist``); a ``timeline`` gets one
+    launch shapes and the round ledger (rounds, pair-rounds, the
+    slot-rounds its launches' slot counts could have run, and rounds by
+    active-slot count in ``occupancy_hist``); a ``timeline`` gets one
     ``compact_launch`` interval per rung and a ``rung_escalation`` marker
-    when pairs move up.
+    when pairs move up, one ``pair_presort`` interval for the column ranks
+    and, per group, a ``pair_presort``, a ``pair_upload`` and a
+    ``pair_metadata`` interval (the metadata launches, their transfers and
+    the trim).
     """
     K2 = params.k2_cap
     n_s, d = sample.shape
     keys = _pair_keys(d)
+    t_ranks = time.perf_counter()
     sample_nn = np.nan_to_num(sample, nan=0.0)
     nanmask = np.isnan(sample)
     ranks = _column_ranks(sample_nn)
+    if timeline is not None:
+        timeline.add("pair_presort", t_ranks, time.perf_counter(), pairs=0)
     slots = _pow2_floor(int(params.pair_chunk))
     group_cap = slots * _COMPACT_QUEUE
     launches = []
-    comp = {"loop_rounds": 0, "pair_rounds": 0, "escalated_pairs": 0,
-            "occupancy_hist": {}}
+    comp = {"loop_rounds": 0, "pair_rounds": 0, "slot_rounds": 0,
+            "escalated_pairs": 0, "occupancy_hist": {}}
     raw_pairs = {}
 
     for start in range(0, len(keys), group_cap):
+        t_presort = time.perf_counter()
         part = keys[start:start + group_cap]
         g = len(part)
         x = np.empty((g, n_s), np.float64)
@@ -256,8 +394,8 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
             rx[p], ry[p] = ranks[a], ranks[b]
             kx0g[p] = min(int(hists[a].k), K2)
             ky0g[p] = min(int(hists[b].k), K2)
-        pres = tuple(torch.as_tensor(arr, device=device) for arr in
-                     _presort_pairs_host(x, y, valid, rx, ry))
+        pres = _upload_presort(_presort_pairs_host(x, y, valid, rx, ry),
+                               device, timeline, t_presort, g)
 
         ladder = _cap_ladder(2, K2, params.k2_start)
         queue: dict[int, list] = {}
@@ -271,6 +409,7 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
             if not pend:
                 continue
             drain_capped = cap < K2
+            n_slots = min(slots, len(pend))
             t_launch = time.perf_counter()
             idx = torch.as_tensor(pend, dtype=torch.int64, device=device)
             ledger = {"loop_rounds": 0, "pair_rounds": 0,
@@ -283,14 +422,15 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
                              cap, device),
                 torch.as_tensor(kx0g[pend], device=device),
                 torch.as_tensor(ky0g[pend], device=device),
-                float(m_pts), crit2, n_slots=min(slots, len(pend)), k2=cap,
+                float(m_pts), crit2, n_slots=n_slots, k2=cap,
                 s_max=params.s2_max, max_rounds=params.max_rounds_2d,
                 drain_capped=drain_capped, stats=ledger)
             oex_h = oex.cpu().numpy()
             oey_h = oey.cpu().numpy()
-            launches.append((min(slots, len(pend)), cap))
+            launches.append((n_slots, cap))
             comp["loop_rounds"] += ledger["loop_rounds"]
             comp["pair_rounds"] += ledger["pair_rounds"]
+            comp["slot_rounds"] += ledger["loop_rounds"] * n_slots
             escalated = 0
             for p, gid in enumerate(pend):
                 if drain_capped and ocap[p]:
@@ -301,7 +441,7 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
             comp["escalated_pairs"] += escalated
             if timeline is not None:
                 timeline.add("compact_launch", t_launch, time.perf_counter(),
-                             cap=cap, slots=min(slots, len(pend)),
+                             cap=cap, slots=n_slots,
                              pairs=len(pend), escalated=escalated,
                              loop_rounds=ledger["loop_rounds"],
                              pair_rounds=ledger["pair_rounds"])
@@ -312,6 +452,7 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
 
         # Metadata per rung (pairs that finished at the same capacity share
         # one launch; the trim is capacity-independent).
+        t_meta = time.perf_counter()
         by_cap: dict[int, list] = {}
         for gid, (cap, *_rest) in final.items():
             by_cap.setdefault(cap, []).append(gid)
@@ -332,6 +473,9 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
                 raw_pairs[part[gid]] = _trim_pair(
                     ex_m[p], ey_m[p], kx_m[p], ky_m[p],
                     *(v[p] for v in meta_h))
+        if timeline is not None:
+            timeline.add("pair_metadata", t_meta, time.perf_counter(),
+                         pairs=g, launches=len(by_cap))
     if stats is not None:
         stats["pair_launches"] = launches
         stats["compaction"] = comp
@@ -369,20 +513,15 @@ def build_pairwise_hist(
     (optional) are per-column initial edge candidates. ``n_rows_full`` is N
     of the complete dataset when ``data`` is itself a sample.
 
+    ``params.pair_batched`` and ``params.compact_drain`` pick the pair
+    scheduler (``build_stats["mode"]``: ``"compact"``, ``"batched"`` or
+    ``"sequential"``); all three give the same synopsis.
     ``device=None`` builds on the CUDA device (and raises without one);
     ``device="cpu"`` runs the same code with the kernels' plain versions.
     The input ``columns`` list is left untouched; the returned synopsis
     carries copies with per-column null counts filled in.
     """
     params = params or BuildParams()
-    if not params.pair_batched:
-        raise NotImplementedError(
-            "pair_batched=False (sequential per-pair build) is not ported "
-            "yet: ROADMAP.md Queue 1, item 3")
-    if not params.compact_drain:
-        raise NotImplementedError(
-            "compact_drain=False (fixed-chunk scheduler) is not ported yet: "
-            "ROADMAP.md Queue 1, item 3")
     dev = resolve_device(device)
     ct = data if isinstance(data, CompressedTable) else None
     if ct is not None:
@@ -455,11 +594,22 @@ def build_pairwise_hist(
     t_pairs = time.perf_counter()
     build_stats: dict = {}
     with timeline.phase("pair_phase"):
-        raw_pairs = build_pairs_compact(sample, hists, params, crit2, m_pts,
-                                        dev, stats=build_stats,
-                                        timeline=timeline)
+        if params.pair_batched and params.compact_drain:
+            mode = "compact"
+            raw_pairs = build_pairs_compact(sample, hists, params, crit2,
+                                            m_pts, dev, stats=build_stats,
+                                            timeline=timeline)
+        elif params.pair_batched:
+            mode = "batched"
+            raw_pairs = build_pairs_batched(sample, hists, params, crit2,
+                                            m_pts, dev, stats=build_stats,
+                                            timeline=timeline)
+        else:
+            mode = "sequential"
+            raw_pairs = build_pairs_sequential(sample, hists, params, crit2,
+                                               m_pts, dev)
     build_stats.update({
-        "mode": "compact",
+        "mode": mode,
         "n_pairs": len(raw_pairs),
         "pair_phase_s": time.perf_counter() - t_pairs,
         "pair_chunk": params.pair_chunk,

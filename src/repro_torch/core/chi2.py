@@ -117,11 +117,18 @@ def subbin_counts(vals, lo, width, cell, s, valid, *, ncell: int, s_max: int):
     s:             (P, ncell) int64 per-cell sub-bin counts (``num_subbins``).
     valid:         (P, N) bool row mask (nulls contribute weight 0).
     """
-    s_pt = torch.gather(s, 1, cell)
+    r = subbin_index(vals, lo, width, torch.gather(s, 1, cell))
+    w = valid.to(torch.float64)
+    return batched_subbin_hist(cell, r, w, ncell, s_max)
+
+
+def subbin_index(vals, lo, width, s_pt):
+    """Sub-bin ``r = floor(s * frac)`` of each point, clipped to
+    ``[0, s - 1]``: ``frac`` is the point's fractional position in its
+    cell's interval ``[lo, lo + width)`` and ``s_pt`` (int64) its cell's
+    sub-bin count. Any shape; int64 out."""
     frac = torch.where(width > 0, (vals - lo) / width,
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
     # Truncation toward zero, as the reference's astype(int32).
     r = (frac * s_pt.to(torch.float64)).to(torch.int64)
-    r = torch.minimum(torch.clamp(r, min=0), s_pt - 1)
-    w = valid.to(torch.float64)
-    return batched_subbin_hist(cell, r, w, ncell, s_max)
+    return torch.minimum(torch.clamp(r, min=0), s_pt - 1)

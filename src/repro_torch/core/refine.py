@@ -15,17 +15,24 @@ in 1-D, pairs in 2-D). Every per-bin value is computed by the same
 floating-point operations in the same order as the reference, and all
 counts are exact integers, so the results are bit-for-bit the reference's.
 
-2-D refinement is pair-batched: ``_round_2d_batch`` refines P pairs one
-round, with the per-cell unique counts going through
-``repro_torch.kernels.hist2d.batched_hist2d`` and the chi-squared sub-bin
-counts through ``repro_torch.kernels.subbin`` (via ``chi2.subbin_counts``)
-— hand-written CUDA kernels for CUDA tensors. ``refine_2d_compact`` drives
-it with a convergence-compacting slot set, draining and backfilling on the
-host.
+2-D refinement has three schedulers, all bit-for-bit equal:
 
-The reference's other 2-D schedulers (fixed-chunk ``refine_2d_batch``,
-``build_pairs_device``, the single-pair ``refine_2d``/``pair_metadata`` and
-the device-side ``presort_pairs``) are not ported yet; see ROADMAP.md.
+  * ``refine_2d`` / ``pair_metadata`` — one pair at a time, its segment
+    sums as plain torch scatters (``index_add_``, ``scatter_reduce``) and
+    one host check of the split count a round: the reference's oracle and
+    the benchmarks' per-pair loop;
+  * ``refine_2d_batch`` (with ``build_pairs_device``) — fixed chunk: P
+    presorted pairs (``presort_pairs``) refine together until the slowest
+    converges;
+  * ``refine_2d_compact`` — convergence-compacting: a slot set over a
+    pending queue, draining and backfilling on the host.
+
+The batched two share ``_round_2d_batch``, whose per-cell unique counts go
+through ``repro_torch.kernels.hist2d.batched_hist2d`` and chi-squared
+sub-bin counts through ``repro_torch.kernels.subbin`` (via
+``chi2.subbin_counts``) — hand-written CUDA kernels for CUDA tensors. All
+three share the split selection (``_split_2d_batch``) and the chi-squared
+tail (``_chi2_from_hbar_b``).
 """
 from __future__ import annotations
 
@@ -260,8 +267,182 @@ def centre_bounds(h, u, vmin, vmax, min_points, crit_table, mu, s_max: int):
 
 
 # ---------------------------------------------------------------------------
+# 2-D refinement, one pair at a time
+# ---------------------------------------------------------------------------
+
+
+def _bin_index(vals, edges, k):
+    """Bin index per point under the half-open-except-last convention."""
+    return _bin_index_b(vals[None], edges[None], k.reshape(1))[0]
+
+
+def _segment_sum(vals, seg, num_segments: int):
+    """``jax.ops.segment_sum``: f64 sums of ``vals`` by segment id."""
+    out = torch.zeros(num_segments, dtype=torch.float64, device=vals.device)
+    return out.index_add_(0, seg, vals.to(torch.float64))
+
+
+def _slice_unique(sort_primary, sort_value, valid, num_segments: int):
+    """Unique-value counts per segment via lexsort + first-occurrence flags.
+
+    The lexsort on (primary, value) is two stable sorts: by the value, then
+    by the segment id.
+    """
+    order = torch.sort(sort_value, stable=True).indices
+    order = order[torch.sort(sort_primary[order], stable=True).indices]
+    seg = sort_primary[order]
+    val = sort_value[order]
+    first = torch.ones_like(valid)
+    first[1:] = (seg[1:] != seg[:-1]) | (val[1:] != val[:-1])
+    return _segment_sum(first & valid[order], seg, num_segments)
+
+
+def _cell_chi2(vals, lo, width, cell, h_cell, u_cell, valid, k2: int,
+               s_max: int, crit_table):
+    """Per-cell chi-squared uniformity statistic along one dimension.
+
+    vals/lo/width: per-point value + its cell's interval in this dimension.
+    cell:          per-point flattened cell id in [0, k2*k2).
+    h_cell/u_cell: per-cell totals (k2*k2,).
+    The sub-bin index is ``chi2.subbin_index``, as in the batched rounds;
+    the counts are a plain scatter here and the tail is
+    ``_chi2_from_hbar_b``.
+    """
+    ncell = k2 * k2
+    s = chi2lib.num_subbins(u_cell, s_max)                       # (ncell,)
+    r = chi2lib.subbin_index(vals, lo, width, s[cell])
+    flat = torch.where(valid, cell * s_max + r,
+                       torch.full_like(r, ncell * s_max))
+    hbar = _segment_sum(torch.ones_like(vals), flat, ncell * s_max + 1)
+    hbar = hbar[:-1].reshape(1, ncell, s_max)
+    stat, crit = _chi2_from_hbar_b(hbar, h_cell[None], s[None], s_max,
+                                   crit_table)
+    return stat[0], crit[0]
+
+
+def refine_2d(x, y, valid, ex0, ey0, kx0: int, ky0: int, min_points,
+              crit_table, *, k2: int, s_max: int = 32, max_rounds: int = 16):
+    """Refine one pair histogram. Returns (ex, ey, kx, ky).
+
+    x, y:    (N,) point coordinates (pre-processed domain); ``valid`` masks
+             rows where either column is null.
+    ex0/ey0: (k2+1,) initial edges = the columns' final 1-D edges (padded).
+    Rounds run while the previous one split (at most ``max_rounds``); the
+    host reads the split and bin counts once a round. ``kx``/``ky`` come
+    back as ints, the edges as (k2+1,) tensors on the device.
+    """
+    ncell = k2 * k2
+    dev = x.device
+    ex, ey = ex0[None], ey0[None]
+    kx = torch.tensor([kx0], dtype=torch.int64, device=dev)
+    ky = torch.tensor([ky0], dtype=torch.int64, device=dev)
+    kx_h, ky_h = int(kx0), int(ky0)
+    ones = valid.to(torch.float64)
+    for _ in range(max_rounds):
+        bi = _bin_index(x, ex[0], kx)
+        bj = _bin_index(y, ey[0], ky)
+        cell = bi * k2 + bj
+        cell_m = torch.where(valid, cell, torch.full_like(cell, ncell))
+        h_cell = _segment_sum(ones, cell_m, ncell + 1)[:-1]
+        ux_cell = _slice_unique(cell_m, x, valid, ncell + 1)[:-1]
+        uy_cell = _slice_unique(cell_m, y, valid, ncell + 1)[:-1]
+
+        lox = ex[0][bi]
+        wx = ex[0][bi + 1] - lox
+        loy = ey[0][bj]
+        wy = ey[0][bj + 1] - loy
+        stat_x, crit_x = _cell_chi2(x, lox, wx, cell, h_cell, ux_cell, valid,
+                                    k2, s_max, crit_table)
+        stat_y, crit_y = _cell_chi2(y, loy, wy, cell, h_cell, uy_cell, valid,
+                                    k2, s_max, crit_table)
+        ex, ey, kx, ky, n_split, _ = _split_2d_batch(
+            h_cell[None], ux_cell[None], uy_cell[None], stat_x[None],
+            crit_x[None], stat_y[None], crit_y[None], ex, ey, kx, ky,
+            min_points, k2=k2)
+        n_split_h, kx_h, ky_h = torch.cat([n_split, kx, ky]).tolist()
+        if n_split_h == 0:
+            break
+    return ex[0], ey[0], kx_h, ky_h
+
+
+def pair_metadata(x, y, valid, ex, ey, kx: int, ky: int, *, k2: int):
+    """Final pair-histogram metadata (counts + per-dim slice aggregates).
+
+    Returns (H, hx, ux, vminx, vmaxx, hy, uy, vminy, vmaxy) at capacity k2.
+    Segment extrema are ``scatter_reduce`` over the valid rows; an empty
+    slice takes its edges as extrema, so no sentinel survives.
+    """
+    ncell = k2 * k2
+    dev = x.device
+    kx_t = torch.tensor([kx], dtype=torch.int64, device=dev)
+    ky_t = torch.tensor([ky], dtype=torch.int64, device=dev)
+    bi = _bin_index(x, ex, kx_t)
+    bj = _bin_index(y, ey, ky_t)
+    cell = torch.where(valid, bi * k2 + bj, torch.full_like(bi, ncell))
+    ones = valid.to(torch.float64)
+    H = _segment_sum(ones, cell, ncell + 1)[:-1].reshape(k2, k2)
+
+    big = torch.finfo(torch.float64).max
+    row = torch.where(valid, bi, torch.full_like(bi, k2))
+    col = torch.where(valid, bj, torch.full_like(bj, k2))
+
+    def slice_meta(seg, vals, edges):
+        hh = _segment_sum(ones, seg, k2 + 1)[:-1]
+        vmin = torch.full((k2 + 1,), big, dtype=torch.float64, device=dev)
+        vmin = vmin.scatter_reduce(
+            0, seg, torch.where(valid, vals, _full_like(vals, big)), "amin",
+            include_self=False)[:-1]
+        vmax = torch.full((k2 + 1,), -big, dtype=torch.float64, device=dev)
+        vmax = vmax.scatter_reduce(
+            0, seg, torch.where(valid, vals, _full_like(vals, -big)), "amax",
+            include_self=False)[:-1]
+        uu = _slice_unique(seg, vals, valid, k2 + 1)[:-1]
+        empty = hh == 0
+        vmin = torch.where(empty, edges[:-1], vmin)
+        vmax = torch.where(empty, edges[1:], vmax)
+        return hh, uu, vmin, vmax
+
+    hx, ux, vminx, vmaxx = slice_meta(row, x, ex)
+    hy, uy, vminy, vmaxy = slice_meta(col, y, ey)
+    return H, hx, ux, vminx, vmaxx, hy, uy, vminy, vmaxy
+
+
+# ---------------------------------------------------------------------------
 # Pair-batched 2-D refinement
 # ---------------------------------------------------------------------------
+
+
+def presort_pairs(x, y, valid):
+    """Per-pair lexsorts on the device, done once per chunk.
+
+    x/y/valid: (P, N). Invalid rows sort to the tail (+inf keys). Returns
+    the points of every pair in (x, y) order and in (y, x) order plus
+    run-start flags, ``build._presort_pairs_host``'s layout:
+
+      xo1/yo1/vo1/new1: values, validity and x-run starts in (x, y) order;
+      xo2/yo2/vo2/new2: values, validity and y-run starts in (y, x) order.
+
+    Each lexsort is a stable sort on the secondary key, then a stable sort
+    on the primary key, so ties keep their row order as in ``np.lexsort``.
+    """
+    inf = _full_like(x, _INF)
+    key_x = torch.where(valid, x, inf)
+    key_y = torch.where(valid, y, inf)
+
+    def lexsort(primary, secondary):
+        o = torch.sort(secondary, dim=1, stable=True).indices
+        by = torch.sort(torch.gather(primary, 1, o), dim=1, stable=True)
+        return torch.gather(o, 1, by.indices)
+
+    o1 = lexsort(key_x, key_y)
+    o2 = lexsort(key_y, key_x)
+    xo1, yo1, vo1 = (torch.gather(a, 1, o1) for a in (x, y, valid))
+    xo2, yo2, vo2 = (torch.gather(a, 1, o2) for a in (x, y, valid))
+    new1 = torch.ones_like(vo1)
+    new1[:, 1:] = xo1[:, 1:] != xo1[:, :-1]
+    new2 = torch.ones_like(vo2)
+    new2[:, 1:] = yo2[:, 1:] != yo2[:, :-1]
+    return xo1, yo1, vo1, new1, xo2, yo2, vo2, new2
 
 
 def _bin_index_b(vals, edges, k):
@@ -328,10 +509,23 @@ def _round_2d_batch(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
     h_cell = torch.sum(hbar_x, dim=2)
     stat_x, crit_x = _chi2_from_hbar_b(hbar_x, h_cell, s_x, s_max, crit_table)
     stat_y, crit_y = _chi2_from_hbar_b(hbar_y, h_cell, s_y, s_max, crit_table)
+    return _split_2d_batch(h_cell, ux_cell, uy_cell, stat_x, crit_x, stat_y,
+                           crit_y, ex, ey, kx, ky, min_points, k2=k2)
 
-    eligible = h_cell > min_points
+
+def _split_2d_batch(h_cell, ux_cell, uy_cell, stat_x, crit_x, stat_y, crit_y,
+                    ex, ey, kx, ky, min_points, *, k2: int):
+    """Split selection, capacity guard and edge insertion over P pairs.
+
+    The per-cell (P, k2*k2) counts, unique counts and chi-squared tests of
+    one round in; (ex, ey, kx, ky, n_split, capped_round) out, with per-pair
+    split and guard-bound flags for this round.
+    """
+    p = h_cell.shape[0]
+    eligible = h_cell > min_points                      # Alg. 1 line 17
     fail_x = eligible & (ux_cell > 1.0) & (stat_x > crit_x)
     fail_y = eligible & (uy_cell > 1.0) & (stat_y > crit_y)
+    # "split applied to the least uniform column": larger excess ratio.
     neg = _full_like(stat_x, -1.0)
     exc_x = torch.where(fail_x, stat_x / torch.clamp(crit_x, min=1e-30), neg)
     exc_y = torch.where(fail_y, stat_y / torch.clamp(crit_y, min=1e-30), neg)
@@ -362,6 +556,50 @@ def _round_2d_batch(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
     ey = torch.sort(torch.cat([ey, torch.where(ok_y, zy, _full_like(zy, _INF))],
                               dim=1), dim=1).values[:, : k2 + 1].contiguous()
     return ex, ey, kx + nx, ky + ny, nx + ny, capped_round
+
+
+def refine_2d_batch(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
+                    ex0, ey0, kx0, ky0, min_points, crit_table, *,
+                    k2: int, s_max: int = 32, max_rounds: int = 16):
+    """Fixed-chunk refinement: P pair histograms refine together.
+
+    Inputs are ``presort_pairs`` outputs plus per-pair initial edges
+    ``ex0``/``ey0`` (P, k2+1) and valid-bin counts ``kx0``/``ky0`` (P,).
+    Rounds run until no pair of the chunk splits (at most ``max_rounds``);
+    the host reads one flag a round. A pair that stopped splitting is at a
+    fixed point, so the rounds it sits through while slower pairs converge
+    change nothing: each pair's result is ``refine_2d``'s on that pair.
+    Returns (ex, ey, kx, ky, capped); ``capped[p]`` is True iff pair p's
+    capacity guard dropped a wanted split in any round (then the result
+    depends on ``k2``; otherwise it does not).
+    """
+    ex, ey = ex0, ey0
+    kx, ky = kx0.to(torch.int64), ky0.to(torch.int64)
+    capped = torch.zeros(ex0.shape[0], dtype=torch.bool, device=ex0.device)
+    for _ in range(max_rounds):
+        ex, ey, kx, ky, n_split, capped_r = _round_2d_batch(
+            xo1, yo1, vo1, new1, xo2, yo2, vo2, new2, ex, ey, kx, ky,
+            min_points, crit_table, k2=k2, s_max=s_max)
+        capped = capped | capped_r
+        if not bool((n_split > 0).any()):
+            break
+    return ex, ey, kx, ky, capped
+
+
+def build_pairs_device(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
+                       ex0, ey0, kx0, ky0, min_points, crit_table, *,
+                       k2: int, s_max: int = 32, max_rounds: int = 16):
+    """``refine_2d_batch`` then ``pair_metadata_batch`` on one chunk.
+
+    Returns (ex, ey, kx, ky, capped, H, hx, ux, vminx, vmaxx, hy, uy,
+    vminy, vmaxy), every tensor with the leading pair axis, on the device.
+    """
+    pres = (xo1, yo1, vo1, new1, xo2, yo2, vo2, new2)
+    ex, ey, kx, ky, capped = refine_2d_batch(
+        *pres, ex0, ey0, kx0, ky0, min_points, crit_table, k2=k2,
+        s_max=s_max, max_rounds=max_rounds)
+    meta = pair_metadata_batch(*pres, ex, ey, kx, ky, k2=k2)
+    return (ex, ey, kx, ky, capped) + meta
 
 
 def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,

@@ -57,8 +57,9 @@ class BuildParams:
     # Convergence-compacting refinement (build_pairs_compact): pair_chunk
     # slots refine a device-resident pending queue, draining each pair the
     # round it converges and backfilling its slot, so deep (correlated)
-    # pairs never lockstep-drag shallow ones. False selects the reference's
-    # fixed-chunk scheduler, which is not ported yet (it raises).
+    # pairs never lockstep-drag shallow ones. False selects the fixed-chunk
+    # scheduler (build_pairs_batched), whose chunks run until their slowest
+    # pair converges; both give the same synopsis.
     compact_drain: bool = True        # drain/backfill vs fixed-chunk lockstep
     # The reference's re-bucketing threshold for a compacted launch's tail.
     # Kept for parity and ignored: the port's host-driven scheduler shrinks

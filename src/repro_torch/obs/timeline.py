@@ -5,7 +5,10 @@ so the recorder is an append-only list of dict events.
 ``build_pairwise_hist`` opens one ``phase(...)`` per pipeline stage (sample,
 1-D refine, pair phase, union regrid, folds) and ``build_pairs_compact``
 appends one ``compact_launch`` interval per capacity rung carrying its
-round and escalation counters, plus ``rung_escalation`` markers.
+round and escalation counters, plus ``rung_escalation`` markers; the
+batched schedulers also time their host presort (``pair_presort``), its
+upload (``pair_upload``) and the compacting one its metadata
+(``pair_metadata``).
 
 Events are plain dicts (JSON-ready, survive a trip through
 ``build_stats``): ``{"name", "t0", "t1", "kind": "phase"|"event", ...attrs}``

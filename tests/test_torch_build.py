@@ -4,7 +4,8 @@ Same input, same ``BuildParams``: the port's ``build_pairwise_hist`` (on
 the CPU, through the kernels' plain versions) must produce the reference's
 synopsis field by field with ``array_equal`` — edges, counts, unique
 counts, extrema, centre bounds and fold maps — on the mixes of
-``tests/test_build_compact.py`` and on ``CompressedTable`` input.
+``tests/test_build_compact.py`` and on ``CompressedTable`` input, under
+each of the three pair schedulers (compacting, fixed chunk, per pair).
 """
 import dataclasses
 
@@ -74,6 +75,13 @@ def mixed():
     return _mixed_table()
 
 
+# The three pair schedulers, as ``BuildParams`` overrides, and the
+# ``build_stats["mode"]`` each reports.
+SCHEDULERS = {"compact": {}, "batched": dict(compact_drain=False),
+              "sequential": dict(pair_batched=False)}
+
+
+@pytest.mark.parametrize("scheduler", list(SCHEDULERS))
 @pytest.mark.parametrize("params_kw", [
     dict(k2_cap=64, s2_max=16, pair_chunk=4),          # test_build_compact
     dict(k2_cap=64, s2_max=16, pair_chunk=1),          # one slot
@@ -84,18 +92,22 @@ def mixed():
     dict(k2_cap=64, s2_max=16, pair_chunk=4, alpha=0.0001),
 ], ids=["compact", "one_slot", "k2_capped", "escalation", "alpha_0.01",
         "alpha_0.0001"])
-def test_build_bit_identical_to_reference(mixed, params_kw):
-    params_kw = dict(params_kw, n_samples=mixed.shape[0])
+def test_build_bit_identical_to_reference(mixed, params_kw, scheduler):
+    params_kw = dict(params_kw, n_samples=mixed.shape[0],
+                     **SCHEDULERS[scheduler])
     ref = _ref_build(mixed, params_kw)
     port = _port_build(mixed, params_kw)
     assert_same_synopsis(ref, port)
     stats = port.build_stats
-    assert stats["mode"] == "compact" and stats["from_compressed"] is False
+    assert stats["mode"] == ref.build_stats["mode"] == scheduler
+    assert stats["from_compressed"] is False
     assert stats["pair_phase_s"] > 0 and "pair_phase" in stats["phase_s"]
     if params_kw["k2_cap"] == 8:
         assert all(int(p.kx) <= 8 and int(p.ky) <= 8
                    for p in port.pairs.values())
-    if params_kw.get("k2_start") == 4:
+    if scheduler == "batched":
+        assert stats["pair_launches"] == ref.build_stats["pair_launches"]
+    if params_kw.get("k2_start") == 4 and scheduler == "compact":
         comp = stats["compaction"]
         assert 0 < comp["escalated_pairs"] < len(port.pairs)
 
@@ -182,13 +194,6 @@ def test_refine_2d_compact_slot_invariance():
         assert results[0][2:] == other[2:]
 
 
-@pytest.mark.parametrize("kw", [dict(pair_batched=False),
-                                dict(compact_drain=False)])
-def test_unported_schedulers_raise(mixed, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_build(mixed, dict(kw, n_samples=1000))
-
-
 def test_default_device_needs_cuda(mixed, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cols = [ColumnInfo(name=f"c{i}", kind="int") for i in range(5)]
@@ -216,11 +221,15 @@ def _random_table(seed):
     return np.stack(cols, 1)
 
 
+@pytest.mark.parametrize("scheduler", list(SCHEDULERS))
 @pytest.mark.parametrize("seed", [1, 3, 6, 10])
-def test_random_tables_bit_identical(seed):
+def test_random_tables_bit_identical(seed, scheduler):
     """Random mixes whose weighted-centre bounds and sub-bin edges depend
     on the reference's fused multiply-adds (seeds that differed in the last
-    bit before ``refine._fma``)."""
+    bit before ``refine._fma``), under each scheduler."""
     data = _random_table(seed)
-    kw = dict(n_samples=2500, seed=seed, k2_cap=64, s2_max=16, pair_chunk=4)
-    assert_same_synopsis(_ref_build(data, kw), _port_build(data, kw))
+    kw = dict(n_samples=2500, seed=seed, k2_cap=64, s2_max=16, pair_chunk=4,
+              **SCHEDULERS[scheduler])
+    port = _port_build(data, kw)
+    assert_same_synopsis(_ref_build(data, kw), port)
+    assert port.build_stats["mode"] == scheduler

@@ -231,6 +231,37 @@ def test_build_timeline_and_phase_summary(framework):
     assert validate_trace_events(json.loads(trace_json(exported))) == []
 
 
+@pytest.mark.parametrize("scheduler, over, spans", [
+    ("compact", {}, ("pair_presort", "pair_upload", "compact_launch",
+                     "pair_metadata")),
+    ("batched", {"compact_drain": False},
+     ("pair_presort", "pair_upload", "batched_launch")),
+])
+def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
+    """The batched schedulers time their host presort, its upload, their
+    launches and (compacting) their metadata as intervals that lie inside
+    the pair phase, apart from one another."""
+    from repro_torch.core.build import build_pairwise_hist
+    from repro_torch.core.types import ColumnInfo
+    data = np.stack(list(_table().values()), 1)
+    syn = build_pairwise_hist(
+        data, [ColumnInfo(name=f"c{i}", kind="int") for i in range(3)],
+        BuildParams(n_samples=4_000, seed=1, **over), device="cpu")
+    stats = syn.build_stats
+    assert stats["mode"] == scheduler
+    events = stats["timeline"]
+    (pair,) = [ev for ev in events if ev["name"] == "pair_phase"]
+    inner = sorted((ev for ev in events if ev["name"] in spans),
+                   key=lambda ev: ev["t0"])
+    assert {ev["name"] for ev in inner} == set(spans)
+    for ev in inner:
+        assert pair["t0"] <= ev["t0"] <= ev["t1"] <= pair["t1"]
+    for a, b in zip(inner, inner[1:]):
+        assert a["t1"] <= b["t0"]
+    assert sum(stats["phase_s"][s] for s in spans) <= \
+        stats["phase_s"]["pair_phase"]
+
+
 def test_compact_occupancy_hist_ledger(framework):
     comp = framework.synopsis.build_stats.get("compaction")
     if comp is None:
