@@ -66,8 +66,30 @@ Phases, each printing one JSON line:
   9. bench   — ``repro_torch.bench.kernels.run`` and
                ``repro_torch.bench.construction.run(quick=True)`` on the
                card (their CSV rows print on lines of their own, their JSON
-               goes to ``chiprun_out/bench/``).
-
+               goes to ``chiprun_out/bench/``);
+ 10. lm      — the LM serving path (``repro_torch.models``,
+               ``serve.engine``), which launches none of the kernels above:
+               qwen3-0.6b at its published width in bf16, weights from the
+               port's seeded init with the MLP output projections scaled
+               so that greedy decoding moves (``LM_RESID_SCALE``), serves
+               8 requests (prompts of 64-192 tokens, 32 new each) over 4
+               slots through ``ServeEngine(device=None)``, with tokens/s,
+               the prefill and median decode-step ms, the launches and
+               device time of a decode step (``torch.profiler``), the peak
+               memory and the floor of reading the weights once; the same
+               weights in f32 with TF32 off prefill 2 x 64 tokens on the
+               card and the CPU (logits at rtol 1e-3, atol 2e-4) and
+               generate 2 x 8 greedy tokens on each (tokens equal and
+               moving, every step's logits at the same tolerance); the
+               bf16 weights prefill the same tokens on both (logits
+               within ``LM_BF16_FULL_SHARE`` of the CPU's f32-to-bf16
+               distance); the 8 requests again in f32 and then in bf16
+               give the f32 decode step's cost beside bf16's and the share
+               of greedy tokens that bf16 and f32 agree on (no
+               threshold); then each architecture's smoke config (MoE
+               under both dispatches) prefills 2 x 64 inputs and decodes
+               4 steps on the card and the CPU, in f32 at the same
+               tolerance and in bf16 within ``LM_BF16_SHARE``.
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 the last line. Without a CUDA device, or outside a checkout of the
@@ -1259,6 +1281,361 @@ def phase_bench() -> int:
     return launches
 
 
+# -------------------------------------------------------------- phase 10
+
+# The lm phase: qwen3-0.6b at its published width, served in its bf16;
+# prompt lengths drawn from LM_PROMPTS (inclusive) by a fixed seed.
+LM_ARCH = "qwen3-0.6b"
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_LEN = 8, 4, 32, 512
+LM_PROMPTS = (64, 192)
+# Card against CPU in f32, TF32 off: the reference's own decode-vs-prefill
+# tolerance (tests/test_models.py).
+LM_RTOL, LM_ATOL = 1e-3, 2e-4
+LM_CHECK_B, LM_CHECK_S, LM_CHECK_NEW, LM_DECODES = 2, 64, 8, 4
+# The full-width models' MLP output projections (w2) are scaled by this
+# power of two after the seeded init (exact in bf16), so that each block's
+# MLP, a function of the current token, outweighs the tied embedding and
+# the attention's average over the context in the residual stream, and
+# greedy decoding moves on from token to token: at the init's scale every
+# request repeats its first generated token, and equal tokens test one
+# argmax.
+LM_RESID_SCALE = 32.0
+# bf16 on the card against bf16 on the CPU, the same weights: the logits'
+# relative distance as a share of the CPU's own f32-to-bf16 distance (1.0:
+# as far as computing in f32). Smoke configs: at most 0.66 measured over
+# the 12 cases' prefill and 4 decode steps on an H100, so 0.8. Full width:
+# 0.81 measured, as the 28 layers let rounding differences grow nearly as
+# far as f32 lies; 1.25 catches gross faults only. Whether each dtype step
+# rounds where the reference does is held by the CPU tests against the
+# reference (tests/test_torch_models.py).
+LM_BF16_SHARE, LM_BF16_FULL_SHARE = 0.8, 1.25
+
+
+def _lm_requests(vocab: int, n: int = LM_REQUESTS, new: int = LM_NEW,
+                 seed: int = 0) -> list:
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, n)
+    return [Request(prompt=rng.integers(0, vocab, int(k)).astype(np.int32),
+                    max_new_tokens=new) for k in lengths]
+
+
+def _lm_serve(model, reqs, slots: int, max_len: int, device=None,
+              record: bool = False) -> dict:
+    """Serve ``reqs``; with ``record``, also every step's last-position
+    logits as the engine sampled them (``"logits"``, f32 on the host)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recording(ServeEngine):
+        def _sample(self, logits):
+            seen.append(logits.float().cpu())
+            return ServeEngine._sample(logits)
+
+    seen = []
+    engine = (Recording if record else ServeEngine)(
+        model, batch_slots=slots, max_len=max_len, device=device)
+    engine.generate(reqs)
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    return {"tokens": tokens, "stats": engine.last_stats,
+            "tokens_per_s": tokens / engine.last_stats["wall_s"],
+            "out": [list(r.out_tokens) for r in reqs], "logits": seen}
+
+
+def _lm_moving(model):
+    """Scale ``model``'s MLP output projections by LM_RESID_SCALE in
+    place; returns it."""
+    import torch
+    with torch.no_grad():
+        for block in model.blocks:
+            block.mlp.w2.mul_(LM_RESID_SCALE)
+    return model
+
+
+def _lm_moving_share(out: list) -> float:
+    """Share of consecutive generated tokens that differ, over requests."""
+    pairs = [(a, b) for toks in out for a, b in zip(toks, toks[1:])]
+    return sum(a != b for a, b in pairs) / len(pairs)
+
+
+def _lm_rel(a, b) -> float:
+    """Relative distance ||a - b|| / ||b|| of two logit tensors, in f32 on
+    the host."""
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _lm_err(a, b) -> tuple[float, bool]:
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    return (float((a - b).abs().max()),
+            bool(torch.allclose(a, b, rtol=LM_RTOL, atol=LM_ATOL)))
+
+
+def _lm_cpu_copy(model):
+    import copy
+    return copy.deepcopy(model).to("cpu")
+
+
+def _lm_timings(model, cfg) -> dict:
+    """Prefill of LM_SLOTS x the longest prompt and LM_NEW single decode
+    steps on a fresh cache (host clock around synchronised calls, medians);
+    the device operations and busy time of one decode step
+    (``device_profile``)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_SLOTS, LM_PROMPTS[1])).astype(np.int32)).cuda()
+    pre_ms = []
+    for _ in range(3):
+        cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(model, toks, cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t) * 1e3)
+    last = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    step_ms = []
+    for _ in range(LM_NEW):
+        t = time.perf_counter()
+        logits, cache = decode_step(model, last, cache)
+        last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        last.cpu()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    busy_ms, ops = device_profile(lambda: decode_step(model, last, cache),
+                                  reps=5, warm=1)
+    return {"prefill_tokens": LM_SLOTS * LM_PROMPTS[1],
+            "prefill_ms": statistics.median(pre_ms),
+            "decode_step_ms": statistics.median(step_ms),
+            "decode_step_device_ms": busy_ms,
+            "decode_launches_per_step": ops}
+
+
+def _lm_arch_case(arch: str, moe_impl: str | None) -> dict:
+    """One smoke architecture, the same weights on the card and the CPU:
+    prefill of LM_CHECK_B x LM_CHECK_S inputs, then LM_DECODES decode
+    steps on fixed inputs, in f32 (the largest logit error of each call,
+    at LM_RTOL / LM_ATOL) and in bf16 (each call's card-to-CPU distance as
+    a share of the CPU's f32-to-bf16 distance, at most LM_BF16_SHARE)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        prefill
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
+    rng = np.random.default_rng(2)
+    b, s, n = LM_CHECK_B, LM_CHECK_S, LM_CHECK_S + LM_DECODES
+    inp = (0.1 * rng.standard_normal((b, n, cfg.d_model))).astype(
+        np.float32) if cfg.embed_inputs else \
+        rng.integers(0, cfg.vocab, (b, n)).astype(np.int32)
+    inp = torch.from_numpy(inp)
+    steps = [inp[:, :s]] + [inp[:, t:t + 1] if cfg.embed_inputs
+                            else inp[:, t] for t in range(s, n)]
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = dataclasses.replace(cfg, dtype=dtype)
+        gpu = init_params(dcfg, torch.Generator("cuda").manual_seed(1))
+        models = {"cuda": gpu, "cpu": _lm_cpu_copy(gpu)}
+        caches = {"cuda": init_cache(dcfg, b, 2 * s),
+                  "cpu": init_cache(dcfg, b, 2 * s, device="cpu")}
+        for dev in ("cuda", "cpu"):
+            logits[dtype, dev] = [
+                (prefill if i == 0 else decode_step)(
+                    models[dev], x.to(dev), caches[dev])[0].cpu()
+                for i, x in enumerate(steps)]
+    errs, ok = [], True
+    for got, want in zip(logits["float32", "cuda"], logits["float32", "cpu"]):
+        err, close = _lm_err(got, want)
+        errs.append(err)
+        ok &= close and bool(torch.isfinite(got).all())
+    shares = [_lm_rel(g16, c16) / _lm_rel(c32, c16) for g16, c16, c32 in
+              zip(logits["bfloat16", "cuda"], logits["bfloat16", "cpu"],
+                  logits["float32", "cpu"])]
+    ok16 = all(torch.isfinite(g).all() for g in logits["bfloat16", "cuda"]) \
+        and max(shares) <= LM_BF16_SHARE
+    kinds = sorted({k for pat, _ in cfg.layer_groups() for k in pat})
+    return {"arch": arch, "moe_impl": moe_impl,
+            "kinds": kinds, "layers": cfg.n_layers,
+            "prefill_max_abs_err": errs[0], "decode_max_abs_err": errs[1:],
+            "bf16_shares": shares, "ok": ok and ok16}
+
+
+def phase_lm(card: str) -> dict:
+    """The port's LM serving path on the card (``repro_torch.models``,
+    ``serve.engine``): qwen3-0.6b at full width in bf16 served through
+    ``ServeEngine(device=None)``; the same weights in f32 on the card and
+    the CPU (logits, greedy tokens), the bf16 weights' logits on the card
+    and the CPU, the f32 decode step's cost; the share of greedy tokens that
+    bf16 and f32 agree on; then every architecture's smoke config on the
+    card and the CPU. Launches no kernel of the port (K1-K5)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models.common import param_count
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    cfg = get_config(LM_ARCH)                       # bf16, the published one
+    gen = torch.Generator("cuda")
+    t = time.perf_counter()
+    model = _lm_moving(init_params(cfg, gen.manual_seed(0)))
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+
+    # 1. Full-width serving in bf16 (a short warm-up request first).
+    _lm_serve(model, _lm_requests(cfg.vocab, n=1, new=2, seed=9), LM_SLOTS,
+              LM_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = _lm_serve(model, _lm_requests(cfg.vocab), LM_SLOTS, LM_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    timings = _lm_timings(model, cfg)
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+
+    # 2. The same weights in f32 (drawn from the same seed; the bf16
+    # model's are their roundings), TF32 off, on the card and the CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = _lm_moving(init_params(cfg32, gen.manual_seed(0)))
+    cpu32 = _lm_cpu_copy(m32)
+    reqs = _lm_requests(cfg.vocab, n=LM_CHECK_B, new=LM_CHECK_NEW, seed=3)
+    toks = torch.stack([torch.from_numpy(r.prompt[:LM_CHECK_S])
+                        for r in reqs])
+    lg_gpu, _ = prefill(m32, toks.cuda(),
+                        init_cache(cfg32, LM_CHECK_B, LM_CHECK_S))
+    t = time.perf_counter()
+    lg_cpu, _ = prefill(cpu32, toks, init_cache(cfg32, LM_CHECK_B,
+                                                LM_CHECK_S, device="cpu"))
+    cpu_prefill_s = time.perf_counter() - t
+    logit_err, logits_close = _lm_err(lg_gpu, lg_cpu)
+    short = [dataclasses.replace(r, prompt=r.prompt[:LM_CHECK_S],
+                                 out_tokens=[]) for r in reqs]
+    gen_gpu = _lm_serve(m32, [dataclasses.replace(r, out_tokens=[])
+                              for r in short], LM_CHECK_B, 2 * LM_CHECK_S,
+                        record=True)
+    gen_cpu = _lm_serve(cpu32, [dataclasses.replace(r, out_tokens=[])
+                                for r in short], LM_CHECK_B,
+                        2 * LM_CHECK_S, device="cpu", record=True)
+    del cpu32
+    steps = [_lm_err(a, b) for a, b in zip(gen_gpu["logits"],
+                                           gen_cpu["logits"])]
+    steps_close = len(gen_gpu["logits"]) == len(gen_cpu["logits"]) and \
+        all(ok for _, ok in steps)
+
+    # 2b. The bf16 weights on the card and the CPU: the logits' distance
+    # against the CPU's own f32-to-bf16 distance on the same prompts.
+    cpu16 = _lm_cpu_copy(model)
+    lg16_gpu, _ = prefill(model, toks.cuda(),
+                          init_cache(cfg, LM_CHECK_B, LM_CHECK_S))
+    lg16_cpu, _ = prefill(cpu16, toks, init_cache(cfg, LM_CHECK_B,
+                                                  LM_CHECK_S, device="cpu"))
+    del cpu16
+    bf16_rel = _lm_rel(lg16_gpu, lg16_cpu)
+    f32_bf16_rel = _lm_rel(lg_cpu, lg16_cpu)
+    bf16_close = bool(torch.isfinite(lg16_gpu).all()) and \
+        bf16_rel <= LM_BF16_FULL_SHARE * f32_bf16_rel
+
+    # 4. bf16 against f32 at full width: the same 8 requests in f32, and
+    # the f32 decode step's cost beside the bf16 one's.
+    f32 = _lm_serve(m32, _lm_requests(cfg.vocab), LM_SLOTS, LM_MAX_LEN)
+    timings32 = _lm_timings(m32, cfg32)
+    pairs = [(a, b) for ra, rb in zip(bf16["out"], f32["out"])
+             for a, b in zip(ra, rb)]
+    del m32
+    # bf16 again, so that the host-bound times of the two dtypes compare
+    # within the call in the order bf16, f32, bf16.
+    again = _lm_serve(model, _lm_requests(cfg.vocab), LM_SLOTS, LM_MAX_LEN)
+    again = {"tokens_per_s": again["tokens_per_s"],
+             "tokens_equal": again["out"] == bf16["out"],
+             **_lm_timings(model, cfg)}
+
+    # 3. Every block kind: the ten smoke configs, MoE under both dispatches.
+    cases = []
+    for arch in ARCHS:
+        impls = ("einsum", "sort") if get_config(arch, smoke=True).n_experts \
+            else (None,)
+        cases += [_lm_arch_case(arch, impl) for impl in impls]
+    failed = [c["arch"] + (f"/{c['moe_impl']}" if c["moe_impl"] else "")
+              for c in cases if not c["ok"]]
+    port_launches = {k: v for k, v in launch_counts().items() if v}
+
+    out = {"phase": "lm", "card": card, "arch": LM_ARCH,
+           "dtype": cfg.dtype, "params": param_count(model),
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "resid_scale": LM_RESID_SCALE,
+           "requests": LM_REQUESTS, "slots": LM_SLOTS,
+           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
+           "prompt_lengths": [len(r.prompt) for r in _lm_requests(cfg.vocab)],
+           "tokens": bf16["tokens"], "serve_stats": bf16["stats"],
+           "tokens_per_s": bf16["tokens_per_s"], **timings,
+           "moving_share": _lm_moving_share(bf16["out"]),
+           "decode_floor_ms": floor_ms,
+           "max_memory_allocated": peak,
+           "f32_check": {"batch": LM_CHECK_B, "seq": LM_CHECK_S,
+                         "logits_max_abs_err": logit_err,
+                         "logits_close": logits_close,
+                         "cpu_prefill_s": cpu_prefill_s,
+                         "tokens_cuda": gen_gpu["out"],
+                         "tokens_cpu": gen_cpu["out"],
+                         "tokens_equal": gen_gpu["out"] == gen_cpu["out"],
+                         "moving_share": _lm_moving_share(gen_gpu["out"]),
+                         "step_logits_max_abs_err": max(e for e, _ in steps),
+                         "step_logits_close": steps_close},
+           "bf16_check": {"batch": LM_CHECK_B, "seq": LM_CHECK_S,
+                          "logits_rel": bf16_rel,
+                          "f32_bf16_rel": f32_bf16_rel,
+                          "share": bf16_rel / f32_bf16_rel,
+                          "limit": LM_BF16_FULL_SHARE,
+                          "close": bf16_close},
+           "f32_tokens_per_s": f32["tokens_per_s"],
+           "f32_timings": timings32, "bf16_again": again,
+           "bf16_f32_equal_token_share": sum(a == b for a, b in pairs)
+           / len(pairs),
+           "archs": cases, "arch_failures": failed,
+           "port_kernel_launches": port_launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bf16["tokens"] != LM_REQUESTS * LM_NEW:
+        raise AssertionError(f"served {bf16['tokens']} tokens, not "
+                             f"{LM_REQUESTS * LM_NEW}")
+    if not logits_close:
+        raise AssertionError(f"f32 logits differ between the card and the "
+                             f"CPU by up to {logit_err}")
+    if not out["f32_check"]["tokens_equal"]:
+        raise AssertionError("f32 greedy tokens differ between the card "
+                             "and the CPU")
+    if not steps_close:
+        raise AssertionError("f32 logits of a generate step differ between "
+                             "the card and the CPU")
+    if not all(len(set(t)) > 1 for t in gen_gpu["out"]):
+        raise AssertionError("f32 greedy decoding repeats one token in a "
+                             "request: the token check would test one "
+                             "argmax")
+    if not bf16_close:
+        raise AssertionError(f"bf16 logits differ between the card and the "
+                             f"CPU by {bf16_rel} of their norm, more than "
+                             f"{LM_BF16_FULL_SHARE} of the f32-to-bf16 "
+                             f"distance {f32_bf16_rel}")
+    if failed:
+        raise AssertionError(f"architectures whose card and CPU logits "
+                             f"differ: {failed}")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1290,6 +1667,7 @@ def main(argv=None) -> int:
         phase_parity()
         ranks = phase_sharded()
         bench_launches = phase_bench()
+        phase_lm(info["nvidia_smi"])
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

@@ -1,0 +1,314 @@
+"""Model assembly: config, parameter init, forward, prefill, decode.
+
+The port of ``src/repro/models/model.py``. The reference stacks each layer
+group along a leading repeat axis and scans over it; here the ``Model``
+holds one ``Block`` a layer in an ``nn.ModuleList``, in the reference's
+layer order (``layer_slots``), and runs eagerly.
+
+Embeddings are tied (logits = x @ embed.T). ``embed_inputs=True``
+(VLM/audio stubs) takes pre-computed frontend embeddings instead of token
+ids. The model carries its config, so the functions below take the model
+where the reference takes ``(params, cfg)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.common import rms_norm, softcap, trunc_normal_
+
+BLOCK_KINDS = ("attn", "attn_local", "attn_global", "moe", "moe_local",
+               "ssm", "rec")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The reference's ``ModelConfig``, field for field, without its
+    rematerialisation and dry-run settings (``remat``, ``remat_policy``,
+    ``force_unroll``), which come with the training and dry-run code that
+    reads them; ``act_dtype`` is a ``torch.dtype``."""
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int = 0
+    n_kv: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    block_pattern: tuple = ("attn",)
+    first_dense: bool = False          # deepseek: layer 0 is dense
+    # attention options
+    qk_norm: bool = False
+    attn_softcap: float | None = None
+    logit_softcap: float | None = None
+    window: int | None = None          # local-attention window
+    rope_theta: float = 10000.0
+    attn_chunk: int = 1024
+    heads_shardable: bool = True       # n_heads % tensor-parallel == 0
+    mlp_act: str = "silu"              # "silu" (SwiGLU) | "gelu" (GeGLU)
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: str = "einsum"           # "einsum" | "sort"
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    ssm_bf16_intra: bool = False       # bf16 intra-chunk SSD tensors
+    # RG-LRU
+    rnn_width: int = 0
+    rnn_conv: int = 4
+    # modality
+    embed_inputs: bool = False         # frontend stub feeds (B,S,D) embeds
+    sub_quadratic: bool = False        # can run long_500k decode
+    # numerics
+    dtype: str = "bfloat16"
+    norm_upcast: bool = True           # False: bf16 RMSNorm
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def layer_groups(self):
+        """[(pattern_tuple, n_repeats)] covering all n_layers."""
+        n = self.n_layers - (1 if self.first_dense else 0)
+        pat = self.block_pattern
+        groups = []
+        if self.first_dense:
+            groups.append((("attn",), 1))
+        n_super, rem = divmod(n, len(pat))
+        if n_super:
+            groups.append((pat, n_super))
+        if rem:
+            groups.append((pat[:rem], 1))
+        return groups
+
+
+def layer_slots(cfg: ModelConfig):
+    """(group, repeat, pattern position, kind) of every layer, in layer
+    order: group by group, then repeat by repeat, then pattern position."""
+    return [(gi, rep, pi, kind)
+            for gi, (pat, n_rep) in enumerate(cfg.layer_groups())
+            for rep in range(n_rep)
+            for pi, kind in enumerate(pat)]
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the model
+# ---------------------------------------------------------------------------
+
+
+def _is_attn(kind: str) -> bool:
+    return kind.startswith("attn") or kind.startswith("moe")
+
+
+class Block(nn.Module):
+    """Pre-norm residual block of one kind (``BLOCK_KINDS``), holding the
+    reference's leaves: ``ln1``, ``attn`` + ``mlp``/``moe`` + ``ln2``,
+    ``ssm``, or ``rec`` + ``ln2`` + ``mlp``."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, device=None):
+        super().__init__()
+        if kind not in BLOCK_KINDS:
+            raise ValueError(kind)
+        self.kind, self.cfg = kind, cfg
+        d = cfg.d_model
+        self.ln1 = nn.Parameter(torch.empty(d, dtype=torch.float32,
+                                            device=device))
+        if _is_attn(kind):
+            self.attn = L.Attention(cfg, device)
+            if kind.startswith("moe"):
+                self.moe = L.MoE(cfg, device)
+            else:
+                self.mlp = L.MLP(cfg, device=device)
+        elif kind == "ssm":
+            self.ssm = L.SSM(cfg, device)
+        else:
+            self.rec = L.RGLRU(cfg, device)
+            self.mlp = L.MLP(cfg, device=device)
+        if kind != "ssm":
+            self.ln2 = nn.Parameter(torch.empty(d, dtype=torch.float32,
+                                                device=device))
+
+    def reset_parameters(self, generator) -> None:
+        """Zero norm scales and the reference's draws for the rest."""
+        with torch.no_grad():
+            for param in self.parameters(recurse=False):
+                param.zero_()
+        for child in self.children():
+            child.reset_parameters(self.cfg, generator)
+
+    def forward(self, x, cache=None, cache_index=None):
+        """Returns the block's output; ``cache`` is written in place."""
+        cfg, kind = self.cfg, self.kind
+        up = cfg.norm_upcast
+        if _is_attn(kind):
+            h = rms_norm(x, self.ln1, upcast=up)
+            x = x + L.attention_apply(self.attn, h, cfg,
+                                      local=kind.endswith("local"),
+                                      cache=cache, cache_index=cache_index)
+            h = rms_norm(x, self.ln2, upcast=up)
+            if kind.startswith("moe"):
+                return x + L.moe_apply(self.moe, h, cfg)
+            return x + L.mlp_apply(self.mlp, h, cfg)
+        state = None if cache is None else cache["state"]
+        conv = None if cache is None else cache["conv"]
+        h = rms_norm(x, self.ln1, upcast=up)
+        apply = L.ssm_apply if kind == "ssm" else L.rglru_apply
+        out, (new_state, new_conv) = apply(
+            self.ssm if kind == "ssm" else self.rec, h, cfg, state, conv)
+        x = x + out
+        if kind == "rec":
+            h = rms_norm(x, self.ln2, upcast=up)
+            x = x + L.mlp_apply(self.mlp, h, cfg)
+        if cache is not None:
+            cache["state"].copy_(new_state)
+            cache["conv"].copy_(new_conv)
+        return x
+
+
+class Model(nn.Module):
+    """Tied embedding ``embed (vocab, d)``, ``blocks`` in layer order and
+    the final norm ``ln_f``. Built on ``device`` with uninitialised
+    parameters; ``init_params`` draws them, ``convert.params_from_reference``
+    loads the reference's."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab, cfg.d_model, dtype=cfg.act_dtype, device=device))
+        self.ln_f = nn.Parameter(torch.empty(
+            cfg.d_model, dtype=torch.float32, device=device))
+        self.blocks = nn.ModuleList(
+            Block(kind, cfg, device) for *_, kind in layer_slots(cfg))
+
+    def reset_parameters(self, generator) -> None:
+        """The reference's ``init_params`` distributions, drawn from
+        ``generator`` (values differ from JAX's)."""
+        trunc_normal_(self.embed, 1.0 / math.sqrt(self.cfg.d_model),
+                      generator)
+        with torch.no_grad():
+            self.ln_f.zero_()
+        for block in self.blocks:
+            block.reset_parameters(generator)
+
+    def forward(self, tokens_or_embeds, cache=None):
+        """Logits (B, S, V); with ``cache``, a cached prefill or decode step
+        that writes the cache and advances its index by S."""
+        cfg = self.cfg
+        x = embed_tokens(self, tokens_or_embeds)
+        index = None if cache is None else cache.index
+        for i, block in enumerate(self.blocks):
+            x = block(x, None if cache is None else cache.layers[i], index)
+        x = rms_norm(x, self.ln_f, upcast=cfg.norm_upcast)
+        logits = x @ self.embed.to(x.dtype).T
+        if cfg.logit_softcap:
+            logits = softcap(logits, cfg.logit_softcap)
+        if cache is not None:
+            cache.index += x.shape[1]
+        return logits
+
+
+def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
+    """A ``Model`` on ``device`` (``None``: the CUDA device) with weights
+    drawn from ``generator`` (``None``: seed 0 on that device)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = Model(cfg, device=dev)
+    model.reset_parameters(generator)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(model: Model, tokens_or_embeds):
+    """Token ids -> embeddings times sqrt(d_model) rounded to the activation
+    dtype; frontend embeddings are cast to it."""
+    cfg = model.cfg
+    if cfg.embed_inputs:
+        return tokens_or_embeds.to(cfg.act_dtype)
+    x = model.embed.to(cfg.act_dtype)[tokens_or_embeds]
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
+
+
+def forward(model: Model, tokens_or_embeds):
+    """Training/scoring forward -> logits (B, S, V)."""
+    return model(tokens_or_embeds)
+
+
+def loss_fn(model: Model, batch: dict):
+    """Mean next-token cross-entropy (f32 logsumexp); forward only."""
+    cfg = model.cfg
+    inputs = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    logits = forward(model, inputs).float()
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = float(nll.numel())
+    return nll.sum() / denom
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Cache:
+    """Each layer's cache tensors (a dict, in layer order), written in
+    place, and ``index``: the position of the next token, shared by every
+    slot."""
+    layers: list
+    index: int = 0
+
+
+def _block_cache(kind, cfg, batch, max_len, dtype, device):
+    if _is_attn(kind):
+        return L.attention_cache(cfg, batch, max_len, dtype,
+                                 local=kind.endswith("local"), device=device)
+    if kind == "ssm":
+        return L.ssm_cache(cfg, batch, dtype, device)
+    return L.rglru_cache(cfg, batch, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> Cache:
+    """Zeroed caches of every layer on ``device`` (``None``: CUDA)."""
+    dev = resolve_device(device)
+    return Cache([_block_cache(kind, cfg, batch, max_len, cfg.act_dtype, dev)
+                  for *_, kind in layer_slots(cfg)])
+
+
+@torch.no_grad()
+def prefill(model: Model, tokens_or_embeds, cache: Cache):
+    """Process a prompt batch, filling the cache. Returns (logits, cache)."""
+    return model(tokens_or_embeds, cache), cache
+
+
+@torch.no_grad()
+def decode_step(model: Model, token_or_embed, cache: Cache):
+    """One token per sequence: (B,) ids or (B,1,D) embeds."""
+    if not model.cfg.embed_inputs and token_or_embed.ndim == 1:
+        token_or_embed = token_or_embed[:, None]
+    return model(token_or_embed, cache), cache
