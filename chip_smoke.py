@@ -89,7 +89,41 @@ Phases, each printing one JSON line:
                threshold); then each architecture's smoke config (MoE
                under both dispatches) prefills 2 x 64 inputs and decodes
                4 steps on the card and the CPU, in f32 at the same
-               tolerance and in bf16 within ``LM_BF16_SHARE``.
+               tolerance and in bf16 within ``LM_BF16_SHARE``;
+ 11. train   — the LM training path (``repro_torch.launch.train`` ->
+               ``train.loop``, ``train.step``, ``train.optimizer``,
+               ``ckpt.checkpoint``, ``train.telemetry``): qwen3-0.6b at
+               its published width, bf16 compute from f32 masters, remat
+               ``"nothing"``, the reference's command-line defaults
+               (batch 8 x 128, lr 1e-3, warmup steps // 10) for 20 steps
+               with telemetry on and the final blocking checkpoint in a
+               temporary directory (deleted): every step's loss (the last
+               5 must average below the first 5), grad norms, step ms,
+               tokens/s, the launches and device time of a step, peak
+               memory, ``ckpt_save_s``, ``train_floor_ms`` (8 N T FLOPs at
+               989 TFLOP/s or AdamW's bytes at 3.35 TB/s) and
+               ``train_mfu`` (the step's device time and launches read
+               with deterministic algorithms on, as the loop runs it),
+               and windows of steps with them on and off in turns; one
+               step with remat off and under each policy (the
+               gradient pass's peak memory must be lower under
+               ``"nothing"`` than with no remat); f32 with TF32 off at
+               full width cut to ``TRAIN_DEPTH`` layers, one step of 2 x
+               64 on the card and the CPU from the same weights (loss,
+               grad norm, each gradient and moment tensor, parameters by
+               the sign rule with noise counted per tensor, and each card
+               parameter against its own moments' update; ``TRAIN_*``
+               tolerances); the reference test's crash-and-resume on the
+               card at that depth and for the SSD's and an einsum MoE's
+               smoke configs (final state ``torch.equal``); every smoke config (MoE under both
+               dispatches) one f32 step card against CPU as above,
+               qwen3's smoke config 30 steps with ``GDQuantizer(8)`` (the
+               loss must fall by 0.2) and 4 microbatches against 1 (rtol
+               2e-4, atol 2e-5); tests/test_train.py's 5,000 telemetry
+               rows into a ``TelemetryStore`` on the card and one on the
+               CPU (synopses equal field by field, answers and stragglers
+               equal, K3/K4 launched and held against their plain versions
+               on the build's first inputs of each shape).
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 the last line. Without a CUDA device, or outside a checkout of the
@@ -1636,6 +1670,521 @@ def phase_lm(card: str) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 11
+
+# The train phase: qwen3-0.6b at its published width, computing in bf16
+# from f32 masters, driven through repro_torch.launch.train with the
+# reference's command-line defaults (batch 8, seq 128, lr 1e-3, warmup
+# steps // 10) for TRAIN_STEPS steps.
+TRAIN_STEPS = 20
+# The card-vs-CPU and resume checks cut qwen3-0.6b to this many layers
+# (full width: d_model 1024, vocab 151,936).
+TRAIN_DEPTH = 2
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 64
+# One compared step: past the warmup (so it moves the weights), from zero
+# moments, with tests/test_train.py's schedule.
+TRAIN_START = 6
+TRAIN_HYPER = dict(lr=1e-3, warmup_steps=5, total_steps=40)
+# H100 SXM dense bf16 peak (NVIDIA data sheet).
+BF16_FLOPS_PER_S = 989e12
+# AdamW's bytes a parameter: p, g, mu, nu read, p, mu, nu written, f32.
+ADAMW_BYTES_PER_PARAM = 7 * 4
+# Card against CPU in f32, TF32 off (tests/test_torch_train_step.py's
+# measured spreads against the reference are the model): loss rtol 2e-5,
+# grad norm rtol 1e-4, each gradient tensor within 1e-4 of its norm (f32
+# sums in another order: about 1e-6), the moments of each tensor within
+# 1e-4 of its norm. Parameters by the sign rule: at rtol 1e-6, atol 1e-7
+# where the two gradients agree within 1e-4 of |g|; the other elements
+# ("noise": a gradient within rounding of zero, whose AdamW step may flip)
+# within one flipped step (2 lr) of the CPU's, counted per tensor and
+# bounded: 1% for the smoke configs (the CPU test's bound; at most 0.60%
+# read on an H100), 2.5% at full width (1.8% read on an H100, 94% of it
+# in the embedding, whose rows outside the batch get only the softmax's
+# gradient). Every element of the card's parameters, noise
+# included, is also held at rtol 1e-6, atol 1e-7 to the AdamW update that
+# the card's own new moments give (computed in f64), so no element goes
+# unchecked.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_TENSOR_REL = 2e-5, 1e-4, 1e-4
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-6, 1e-7
+TRAIN_AGREE = 1e-4
+TRAIN_NOISE_FULL, TRAIN_NOISE_SMOKE = 0.025, 0.01
+# Reported, not bounded: the share of elements whose |g| is at most this
+# share of their tensor's largest (the bf16 test's floor).
+TRAIN_FLOOR = 1e-4
+TRAIN_TELEMETRY_ROWS = 5000
+# Determinism's cost: windows of this many steps, on and off in turns.
+TRAIN_DET_STEPS, TRAIN_DET_TURNS = 10, ("on", "off", "off", "on")
+# Resumed on the card besides qwen3-0.6b at TRAIN_DEPTH (f32, the default
+# einsum dispatch for the MoE).
+TRAIN_RESUME_SMOKE = ("mamba2_1_3b", "deepseek_moe_16b")
+
+
+def _train_batch(cfg, b: int, s: int, seed: int = 0) -> dict:
+    """``TokenPipeline``'s batch at step 0 (embeddings drawn from ``seed``
+    for a frontend-fed config), as NumPy arrays."""
+    import numpy as np
+    from repro_torch.data.pipeline import TokenPipeline
+    batch = TokenPipeline(cfg.vocab, b, s, seed=seed).host_slice(0)
+    if cfg.embed_inputs:
+        rng = np.random.default_rng(seed)
+        batch = {"embeds": (0.1 * rng.standard_normal(
+            (b, s, cfg.d_model))).astype(np.float32),
+            "labels": batch["labels"]}
+    return batch
+
+
+def _rel_norm(a, b) -> float:
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    n = float(torch.linalg.vector_norm(b))
+    return float(torch.linalg.vector_norm(a - b)) / n if n else \
+        float(torch.linalg.vector_norm(a))
+
+
+def _train_card_vs_cpu(cfg, batch: dict, noise_share: float) -> dict:
+    """One f32 step of ``cfg`` on the card and on the CPU from the same
+    weights (drawn on the CPU from seed 1) and batch, at TRAIN_START: loss,
+    grad norm and each gradient and moment tensor at the TRAIN_*
+    tolerances; the parameters by the sign rule, with at most
+    ``noise_share`` of the elements noise; every card parameter against
+    the update its own moments give."""
+    import copy
+
+    import torch
+    from repro_torch.train.optimizer import (Hyper, adamw_init, decayed,
+                                             schedule)
+    from repro_torch.train.step import (TrainState, init_train_state,
+                                        loss_and_grads, make_train_step)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(1), "cpu")
+    start = {n: p.detach().clone() for n, p in cpu.params.named_parameters()}
+    gpu_model = copy.deepcopy(cpu.params).cuda()
+    states = {"cuda": TrainState(gpu_model, adamw_init(gpu_model),
+                                 TRAIN_START),
+              "cpu": cpu._replace(step=TRAIN_START)}
+    hyper = Hyper(**TRAIN_HYPER)
+    step = make_train_step(cfg, hyper)
+    out = {}
+    for dev, state in states.items():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(state.params, b)
+        new, metrics = step(state, b)
+        out[dev] = {"loss": float(loss), "grads": grads,
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "params": dict(new.params.named_parameters()),
+                    "opt": new.opt}
+    g, c = out["cuda"], out["cpu"]
+    grad_rel = max(_rel_norm(g["grads"][n], c["grads"][n])
+                   for n in c["grads"])
+    moment_rel = max(_rel_norm(g["opt"][k][n], c["opt"][k][n])
+                     for k in ("mu", "nu") for n in c["grads"])
+    # The AdamW update in f64 from the card's own moments, with the f32
+    # learning rate and bias corrections that adamw_update applies.
+    t = torch.tensor(TRAIN_START + 1, dtype=torch.float32)
+    lr = float(schedule(hyper, TRAIN_START))
+    bc1, bc2 = float(1.0 - hyper.b1 ** t), float(1.0 - hyper.b2 ** t)
+    decay = decayed(cfg)
+    noise = total = bad = own_bad = floor = 0
+    noise_by = {}
+    for name, want in c["params"].items():
+        got = g["params"][name].detach()
+        p0 = start[name].cuda().double()
+        mu, nu = g["opt"]["mu"][name].double(), g["opt"]["nu"][name].double()
+        upd = (mu / bc1) / ((nu / bc2).sqrt() + hyper.eps)
+        if name in decay:
+            upd = upd + hyper.weight_decay * p0
+        own = p0 - lr * upd
+        own_bad += int(((got.double() - own).abs() > TRAIN_PARAM_ATOL
+                        + TRAIN_PARAM_RTOL * own.abs()).sum())
+        got, want = got.cpu(), want.detach()
+        gc = c["grads"][name]
+        clear = (g["grads"][name].cpu() - gc).abs() <= TRAIN_AGREE * gc.abs()
+        diff = (got - want).abs()
+        bad += int((diff > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
+                    * want.abs())[clear].sum())
+        flip = 2 * lr * (1 + hyper.weight_decay * start[name].abs()) \
+            + TRAIN_PARAM_ATOL
+        bad += int((diff > flip)[~clear].sum())
+        n_noise = int((~clear).sum())
+        if n_noise:
+            noise_by[name] = [n_noise, want.numel()]
+        noise += n_noise
+        floor += int((gc.abs() <= TRAIN_FLOOR * gc.abs().max()).sum())
+        total += want.numel()
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    gnorm_rel = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL
+          and grad_rel <= TRAIN_TENSOR_REL and moment_rel <= TRAIN_TENSOR_REL
+          and bad == 0 and own_bad == 0 and noise <= noise_share * total)
+    top = sorted(noise_by.items(), key=lambda kv: -kv[1][0])[:4]
+    return {"loss_cuda": g["loss"], "loss_cpu": c["loss"],
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+            "grad_tensor_rel_max": grad_rel,
+            "moment_tensor_rel_max": moment_rel,
+            "param_mismatches": bad, "own_update_mismatches": own_bad,
+            "noise_elements": noise, "noise_share": noise / total,
+            "noise_bound": noise_share, "noise_by_tensor": dict(top),
+            "below_floor_share": floor / total,
+            "elements": total, "ok": ok}
+
+
+def _train_resume(cfg, root: str) -> dict:
+    """tests/test_train.py's resume recipe on the card: 12 steps of 4 x
+    64, checkpoints every 4, against a run failed at step 7 and resumed;
+    the final parameters and moments must be equal bit for bit."""
+    import os
+    import statistics
+
+    import torch
+    from repro_torch.train.loop import InjectedFailure, train
+    from repro_torch.train.optimizer import Hyper
+    t = time.perf_counter()
+    rh = Hyper(**TRAIN_HYPER)
+    kw = dict(steps=12, batch=4, seq=64, ckpt_every=4, verbose=False)
+    s1, h1 = train(cfg, rh, ckpt_dir=os.path.join(root, "a"), **kw)
+    t_run = [time.perf_counter() - t]
+    failed = False
+    try:
+        train(cfg, rh, ckpt_dir=os.path.join(root, "b"), fail_at_step=7,
+              **kw)
+    except InjectedFailure:
+        failed = True
+    t_run.append(time.perf_counter() - t - sum(t_run))
+    s2, _ = train(cfg, rh, ckpt_dir=os.path.join(root, "b"), **kw)
+    t_run.append(time.perf_counter() - t - sum(t_run))
+    equal = s1.step == s2.step == 12 and all(
+        torch.equal(a, b) for a, b in zip(s1.params.parameters(),
+                                          s2.params.parameters())) \
+        and all(torch.equal(s1.opt[k][n], s2.opt[k][n])
+                for k in ("mu", "nu") for n in s1.opt[k])
+    return {"steps": 12, "batch": 4, "seq": 64, "ckpt_every": 4,
+            "fail_at_step": 7, "failed": failed, "state_equal": equal,
+            "ok": failed and equal, "run_s": t_run,
+            "final_save_s": h1["final_save_s"],
+            "median_step_ms": statistics.median(h1["step_time"][1:]) * 1e3,
+            "seconds": time.perf_counter() - t}
+
+
+def _device_top(fn, n: int = 12) -> list:
+    """The device operations of one warm call of ``fn`` grouped by name:
+    the ``n`` largest by summed time, as [name, ms, count]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if _is_device_work(e):
+            ms, k = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                          k + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return [[name[:240], ms, k] for name, (ms, k) in top]
+
+
+def _train_timed_steps(step_fn, state, batch, n: int) -> tuple:
+    """``n`` synchronised steps; returns (state, median ms)."""
+    import statistics
+
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        times.append((time.perf_counter() - t) * 1e3)
+    return state, statistics.median(times)
+
+
+def _train_telemetry() -> tuple:
+    """tests/test_train.py's 5,000 telemetry rows (rng 0) into a store on
+    the card and one on the CPU: synopsis diffs, answers, stragglers, the
+    card build's K3/K4 launches and the K3/K4 cases on the first inputs of
+    each shape that the card build launched."""
+    import numpy as np
+    from repro_torch.core.types import BuildParams
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.telemetry import TelemetryStore
+    rng = np.random.default_rng(0)
+    rows = []
+    for step in range(TRAIN_TELEMETRY_ROWS):
+        host = f"host{step % 4}"
+        base = 0.1 if host != "host3" else 0.25
+        rows.append(dict(step=step, loss=3.0 - step * 1e-4,
+                         grad_norm=float(rng.random()),
+                         step_time=base + rng.random() * 0.01, host=host))
+    stores = {}
+    recorded = {}
+    for dev in (None, "cpu"):
+        store = TelemetryStore(BuildParams(n_samples=TRAIN_TELEMETRY_ROWS),
+                               device=dev)
+        store.extend(rows)
+        if dev is None:
+            reset_launch_counts()
+            t = time.perf_counter()
+            with recording_hist_inputs(recorded, _shape_key):
+                store.build()
+            build_s = time.perf_counter() - t
+            launches = {k: v for k, v in launch_counts().items() if v}
+        else:
+            store.build()
+        stores[dev] = store
+    card, host = stores[None], stores["cpu"]
+    diffs = synopsis_diffs(card._framework.synopsis, host._framework.synopsis)
+    sqls = ("SELECT AVG(step_time) FROM t WHERE host = 'host3'",
+            "SELECT AVG(loss) FROM t WHERE step > 4000",
+            "SELECT MEDIAN(step_time) FROM t")
+    answers = [(card.query(s).estimate, host.query(s).estimate)
+               for s in sqls]
+    stragglers = card.straggler_report()
+    cases = []
+    for (kind, ka, kb), (a, b, w, *_k) in recorded.items():
+        k2 = ka if kind == "batched_hist2d" else round(ka ** 0.5)
+        cases.append(_hist_case(kind, a, b, w, ka, kb, shape="telemetry",
+                                k2=k2,
+                                weights=str(w.dtype).replace("torch.", "")))
+    out = {"rows": len(rows), "build_s": build_s,
+           "mismatched_fields": len(diffs), "answers": answers,
+           "answers_equal": all(a == b for a, b in answers),
+           "stragglers": sorted(stragglers),
+           "stragglers_equal": stragglers == host.straggler_report(),
+           "launches": launches}
+    return out, cases
+
+
+def phase_train(card: str) -> tuple:
+    """The port's LM training path on the card (``repro_torch.launch.train``
+    -> ``train.loop`` -> ``train.step`` -> ``train.optimizer``,
+    ``ckpt.checkpoint``, ``train.telemetry``): qwen3-0.6b at full width
+    for TRAIN_STEPS steps, its step cost and what determinism costs; one
+    step under each remat setting; f32 card against CPU at depth
+    TRAIN_DEPTH; bit-exact resume on the card; every smoke config card
+    against CPU, compression, microbatches; the telemetry store's build
+    (K3/K4) against the CPU's. Returns (the phase's JSON, the K3/K4 cases
+    held against their plain versions)."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.common import param_count
+    from repro_torch.train.grad_compress import GDQuantizer
+    from repro_torch.train.loop import deterministic_algorithms, train
+    from repro_torch.train.optimizer import Hyper
+    from repro_torch.train.step import (init_train_state, loss_and_grads,
+                                        make_train_step)
+    from repro_torch.train.telemetry import TelemetryStore
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    bad = []
+    try:
+        # 1. Full width through the command line's path, telemetry on.
+        args = train_cli.parse(["--steps", str(TRAIN_STEPS), "--ckpt-dir",
+                                os.path.join(tmp, "full")])
+        cfg = get_config(args.arch)
+        tel = TelemetryStore(device=None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, hist = train_cli.run(args, telemetry=tel)
+        run_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        n_params = param_count(state.params)
+        tokens = args.batch * args.seq
+        step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+        flops = 8 * n_params * tokens           # fwd 2, bwd 4, remat 2
+        adamw_bytes = ADAMW_BYTES_PER_PARAM * n_params
+        floor_ms = max(flops / BF16_FLOPS_PER_S,
+                       adamw_bytes / HBM_BYTES_PER_S) * 1e3
+        losses = hist["loss"]
+        telemetry_avg = tel.query("SELECT AVG(step_time) FROM t").estimate
+        hyper = Hyper(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                      total_steps=args.steps)
+        step_fn = make_train_step(cfg, hyper)
+        host = {k: torch.from_numpy(v).cuda() for k, v in
+                _train_batch(cfg, args.batch, args.seq).items()}
+        box = [state]
+
+        def one_step():
+            box[0], _ = step_fn(box[0], host)
+        # What determinism costs: windows of TRAIN_DET_STEPS steps with it
+        # on and off in turns, then one profiled step of each. The loop
+        # runs its steps with it on, so the step's device time, launches
+        # and idle share are read with it on.
+        det = {"on": [], "off": []}
+        for mode in TRAIN_DET_TURNS:
+            with (deterministic_algorithms() if mode == "on"
+                  else nullcontext()):
+                box[0], ms = _train_timed_steps(step_fn, box[0], host,
+                                                TRAIN_DET_STEPS)
+            det[mode].append(ms)
+        det["off_device_ms"], det["off_launches"] = device_profile(
+            one_step, reps=1, warm=1)
+        with deterministic_algorithms():
+            busy_ms, launches = device_profile(one_step, reps=3, warm=1)
+            top = _device_top(one_step)
+        full = {"arch": args.arch, "dtype": cfg.dtype,
+                "param_dtype": str(state.params.param_dtype),
+                "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+                "params": n_params, "batch": args.batch, "seq": args.seq,
+                "steps": args.steps, "lr": args.lr,
+                "warmup_steps": hyper.warmup_steps,
+                "loss": losses, "grad_norm": hist["grad_norm"],
+                "step_ms": [t * 1e3 for t in hist["step_time"]],
+                "median_step_ms": step_ms,
+                "tokens_per_s": tokens / (step_ms / 1e3),
+                "step_device_ms": busy_ms, "launches_per_step": launches,
+                "step_device_top": top,
+                "idle_share": 1.0 - busy_ms / step_ms,
+                "max_memory_allocated": peak,
+                "ckpt_save_s": hist["final_save_s"], "run_s": run_s,
+                "train_floor_ms": floor_ms,
+                "floor_by": "operations" if flops / BF16_FLOPS_PER_S >=
+                adamw_bytes / HBM_BYTES_PER_S else "bytes",
+                "train_mfu": 6 * n_params * tokens
+                / (step_ms / 1e3 * BF16_FLOPS_PER_S),
+                "deterministic_step_ms": det,
+                "flagged_steps": hist["flagged_steps"],
+                "telemetry_rows": len(hist["loss"]),
+                "telemetry_avg_step_time": telemetry_avg}
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            bad.append("full-width loss did not fall")
+        if not np.isfinite(hist["grad_norm"]).all():
+            bad.append("full-width grad norm not finite")
+        del state, box, step_fn
+        shutil.rmtree(os.path.join(tmp, "full"), ignore_errors=True)
+
+        # 2. One step under each remat setting: peak memory of the
+        # gradient pass and of the whole step.
+        remat = {}
+        for label, kw in (("off", {"remat": False}),
+                          ("nothing", {"remat_policy": "nothing"}),
+                          ("dots", {"remat_policy": "dots"}),
+                          ("blk_out", {"remat_policy": "blk_out"})):
+            c = dataclasses.replace(cfg, **kw)
+            st = init_train_state(c, torch.Generator("cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, grads = loss_and_grads(st.params, host)
+            torch.cuda.synchronize()
+            grad_peak = torch.cuda.max_memory_allocated()
+            del grads
+            t = time.perf_counter()
+            st, metrics = make_train_step(c, hyper)(st, host)
+            float(metrics["loss"])
+            remat[label] = {"grad_peak_bytes": grad_peak,
+                            "step_peak_bytes":
+                                torch.cuda.max_memory_allocated(),
+                            "state_bytes": base, "loss": float(loss),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "step_ms": (time.perf_counter() - t) * 1e3}
+            del st
+        if not remat["nothing"]["grad_peak_bytes"] < \
+                remat["off"]["grad_peak_bytes"]:
+            bad.append("remat 'nothing' did not lower peak memory")
+
+        # 3. f32 card against CPU, full width cut to TRAIN_DEPTH layers.
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=TRAIN_DEPTH)
+        t = time.perf_counter()
+        f32 = _train_card_vs_cpu(
+            cut, _train_batch(cut, TRAIN_CHECK_B, TRAIN_CHECK_S),
+            TRAIN_NOISE_FULL)
+        f32["seconds"] = time.perf_counter() - t
+        if not f32["ok"]:
+            bad.append("f32 card and CPU steps differ")
+
+        # 4. Bit-exact resume on the card (tests/test_train.py's recipe):
+        # full width at TRAIN_DEPTH, and the smoke configs of the SSD
+        # (its f32 cumsum) and of an MoE under the einsum dispatch.
+        resume = {"full_width": dict(_train_resume(cut, os.path.join(
+            tmp, "resume")), cut=f"n_layers {cfg.n_layers} -> {TRAIN_DEPTH}")}
+        for arch in TRAIN_RESUME_SMOKE:
+            sc = dataclasses.replace(get_config(arch, smoke=True),
+                                     dtype="float32")
+            resume[arch] = dict(_train_resume(sc, os.path.join(tmp, arch)),
+                                moe_impl=sc.moe_impl if sc.n_experts
+                                else None)
+        not_exact = [k for k, v in resume.items() if not v["ok"]]
+        if not_exact:
+            bad.append(f"resume on the card is not bit-exact: {not_exact}")
+
+        # 5. Every smoke config card against CPU (MoE under both
+        # dispatches); compression; microbatches.
+        smoke = []
+        for arch in ARCHS:
+            sc = dataclasses.replace(get_config(arch, smoke=True),
+                                     dtype="float32")
+            for impl in (("einsum", "sort") if sc.n_experts else (None,)):
+                c = dataclasses.replace(sc, moe_impl=impl) if impl else sc
+                case = _train_card_vs_cpu(
+                    c, _train_batch(c, TRAIN_CHECK_B, TRAIN_CHECK_S),
+                    TRAIN_NOISE_SMOKE)
+                smoke.append(dict(case, arch=arch, moe_impl=impl))
+        smoke_failed = [c["arch"] + (f"/{c['moe_impl']}" if c["moe_impl"]
+                                     else "") for c in smoke if not c["ok"]]
+        if smoke_failed:
+            bad.append(f"smoke configs differ card vs CPU: {smoke_failed}")
+        qcfg = dataclasses.replace(get_config(args.arch, smoke=True),
+                                   dtype="float32")
+        rh = Hyper(**TRAIN_HYPER)
+        _, gd = train(qcfg, rh, steps=30, batch=8, seq=64,
+                      ckpt_dir=os.path.join(tmp, "gd"), ckpt_every=100,
+                      compressor=GDQuantizer(bits=8), verbose=False)
+        gd_drop = float(np.mean(gd["loss"][:5]) - np.mean(gd["loss"][-5:]))
+        if not gd_drop > 0.2:
+            bad.append(f"GDQuantizer training loss fell by {gd_drop} only")
+        s0 = init_train_state(qcfg, torch.Generator("cuda").manual_seed(0))
+        mb = {k: torch.from_numpy(v).cuda()
+              for k, v in _train_batch(qcfg, 8, 64, seed=1).items()}
+        m1 = make_train_step(qcfg, rh)(copy.deepcopy(s0), mb)[0]
+        m4 = make_train_step(qcfg, rh, microbatches=4)(s0, mb)[0]
+        with torch.no_grad():
+            mb_err = max(float(((a - b).abs() - 2e-4 * b.abs()).max())
+                         for a, b in zip(m4.params.parameters(),
+                                         m1.params.parameters()))
+        if not mb_err <= 2e-5:
+            bad.append(f"microbatches=4 differ from 1 by {mb_err}")
+
+        # 6. The telemetry store on the card against the CPU.
+        telemetry, cases = _train_telemetry()
+        if telemetry["mismatched_fields"] or not telemetry["answers_equal"] \
+                or "host3" not in telemetry["stragglers"] \
+                or not telemetry["stragglers_equal"]:
+            bad.append("telemetry on the card differs from the CPU")
+        zero = [k for k in PAIR_KERNELS
+                if telemetry["launches"].get(k, 0) <= 0]
+        if zero:
+            bad.append(f"the telemetry build never launched {zero}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cut_note = f"n_layers {cfg.n_layers} -> {TRAIN_DEPTH}, widths kept"
+    out = {"phase": "train", "card": card, "full_width": full,
+           "remat": remat, "f32_check": dict(f32, cut=cut_note,
+                                             batch=TRAIN_CHECK_B,
+                                             seq=TRAIN_CHECK_S),
+           "resume": resume, "smoke": smoke, "smoke_failures": smoke_failed,
+           "gd_quantizer_loss_drop": gd_drop,
+           "microbatch_excess": mb_err, "telemetry": telemetry,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bad:
+        raise AssertionError(f"train phase failed: {bad}")
+    _check(cases, "train_kernels")
+    return out, cases
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1668,6 +2217,8 @@ def main(argv=None) -> int:
         ranks = phase_sharded()
         bench_launches = phase_bench()
         phase_lm(info["nvidia_smi"])
+        train_out, train_cases = phase_train(info["nvidia_smi"])
+        cases = cases + train_cases
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1675,8 +2226,9 @@ def main(argv=None) -> int:
     # the main path's own first launches (both ``shape`` "main"); K5 at the
     # bench's 100,000 rows x 256 x 256, fp32 weights. max_abs_err is the
     # largest over every case of the kernel. K1/K2's launches are those of
-    # the main phase and the serve phase; K5's those of the sharded ranks
-    # and the bench.
+    # the main phase and the serve phase; K3/K4's those of the main phase
+    # and the train phase's telemetry build; K5's those of the sharded
+    # ranks and the bench.
     cases = cases + main_out["kernel_cases"]
     report = {c["name"]: c for c in cases if c.get("shape") == "main"}
     for c in cases:
@@ -1686,6 +2238,8 @@ def main(argv=None) -> int:
     launches = dict(main_out["launches"],
                     hist2d=bench_launches + sum(r["launches"] for r in ranks))
     for name, n in serve_out["kernel_launches"].items():
+        launches[name] += n
+    for name, n in train_out["telemetry"]["launches"].items():
         launches[name] += n
     kernels = []
     for name in TPU_KERNELS:

@@ -1,2 +1,2 @@
-"""Launch entry points of the port: the LM serving command line
-(``python -m repro_torch.launch.serve``)."""
+"""Launch entry points of the port: the LM serving and training command
+lines (``python -m repro_torch.launch.serve``, ``... .launch.train``)."""

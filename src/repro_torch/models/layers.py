@@ -5,9 +5,10 @@ that holds its parameters in the reference's layouts (``wq (d, h, dh)``,
 ``wo (h, dh, d)``, ``w1 (d, f)``, MoE ``w1 (e, d, f)``, ...) and an apply
 function with the reference's name that takes the module in place of the
 reference's parameter dict. Matmul weights live in the activation dtype
-(the reference keeps f32 and casts at each use, which gives the same
-values); norm scales, the router, ``A_log``, ``dt_bias``, ``D`` and ``lam``
-stay f32.
+unless the layer is built with another ``dtype`` (training builds them in
+f32, the reference's masters); every apply function casts them to the
+activation dtype where it uses them, as the reference does. Norm scales,
+the router, ``A_log``, ``dt_bias``, ``D`` and ``lam`` are f32.
 
 Attention is chunked: f32 scores per query chunk, never (S, S). Caches are
 preallocated tensors written in place; the position of the next token is
@@ -44,10 +45,10 @@ class Attention(nn.Module):
     """Parameters ``wq (d, h, dh)``, ``wk``/``wv (d, hkv, dh)``,
     ``wo (h, dh, d)`` and, with ``qk_norm``, ``q_norm``/``k_norm (dh,)``."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-        dt = cfg.act_dtype
+        dt = dtype or cfg.act_dtype
         self.wq = _param((d, h, dh), dt, device)
         self.wk = _param((d, hkv, dh), dt, device)
         self.wv = _param((d, hkv, dh), dt, device)
@@ -188,9 +189,9 @@ def attention_cache(cfg, batch: int, max_len: int, dtype, local: bool = False,
 class MLP(nn.Module):
     """Parameters ``w1``/``w3 (d, f)`` and ``w2 (f, d)``."""
 
-    def __init__(self, cfg, d_ff=None, device=None):
+    def __init__(self, cfg, d_ff=None, device=None, dtype=None):
         super().__init__()
-        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.act_dtype
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, dtype or cfg.act_dtype
         self.w1 = _param((d, f), dt, device)
         self.w3 = _param((d, f), dt, device)
         self.w2 = _param((f, d), dt, device)
@@ -219,17 +220,17 @@ class MoE(nn.Module):
     """Parameters ``router (d, e)`` (f32), ``w1``/``w3 (e, d, f)``,
     ``w2 (e, f, d)`` and, with ``n_shared``, a ``shared`` MLP."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         d, e, f, dt = cfg.d_model, cfg.n_experts, cfg.d_ff_expert, \
-            cfg.act_dtype
+            dtype or cfg.act_dtype
         self.router = _param((d, e), torch.float32, device)
         self.w1 = _param((e, d, f), dt, device)
         self.w3 = _param((e, d, f), dt, device)
         self.w2 = _param((e, f, d), dt, device)
         if cfg.n_shared > 0:
             self.shared = MLP(cfg, d_ff=cfg.d_ff_expert * cfg.n_shared,
-                              device=device)
+                              device=device, dtype=dt)
 
     def reset_parameters(self, cfg, generator) -> None:
         """The reference's ``init_moe``, drawn from ``generator``."""
@@ -362,13 +363,13 @@ class SSM(nn.Module):
     2 N)``, ``A_log``/``dt_bias``/``D (nh,)`` (f32) and ``out_proj (din,
     d)``."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         d = cfg.d_model
         din = cfg.ssm_expand * d
         nh = din // cfg.ssm_head_dim
         n = cfg.ssm_state
-        dt = cfg.act_dtype
+        dt = dtype or cfg.act_dtype
         self.in_proj = _param((d, 2 * din + 2 * n + nh), dt, device)
         self.conv_w = _param((cfg.ssm_conv, din + 2 * n), dt, device)
         self.A_log = _param((nh,), torch.float32, device)
@@ -515,9 +516,9 @@ class RGLRU(nn.Module):
     ``w_input_gate``/``w_rec_gate (w, w)``, ``lam (w,)`` (f32) and
     ``out_proj (w, d)``."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        d, w, dt = cfg.d_model, cfg.rnn_width, cfg.act_dtype
+        d, w, dt = cfg.d_model, cfg.rnn_width, dtype or cfg.act_dtype
         self.in_x = _param((d, w), dt, device)
         self.in_gate = _param((d, w), dt, device)
         self.conv_w = _param((cfg.rnn_conv, w), dt, device)

@@ -3,7 +3,10 @@
 The port of ``src/repro/models/model.py``. The reference stacks each layer
 group along a leading repeat axis and scans over it; here the ``Model``
 holds one ``Block`` a layer in an ``nn.ModuleList``, in the reference's
-layer order (``layer_slots``), and runs eagerly.
+layer order (``layer_slots``), and runs eagerly. Where autograd records
+(training), each superblock (one repeat of a group's pattern, the body of
+the reference's scan) is rematerialised in the backward pass under the
+config's ``remat_policy``, as the reference checkpoints its scan body.
 
 Embeddings are tied (logits = x @ embed.T). ``embed_inputs=True``
 (VLM/audio stubs) takes pre-computed frontend embeddings instead of token
@@ -13,10 +16,13 @@ where the reference takes ``(params, cfg)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -29,9 +35,8 @@ BLOCK_KINDS = ("attn", "attn_local", "attn_global", "moe", "moe_local",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig``, field for field, without its
-    rematerialisation and dry-run settings (``remat``, ``remat_policy``,
-    ``force_unroll``), which come with the training and dry-run code that
-    reads them; ``act_dtype`` is a ``torch.dtype``."""
+    dry-run setting ``force_unroll``, which comes with the dry run;
+    ``act_dtype`` is a ``torch.dtype``."""
     name: str
     vocab: int
     d_model: int
@@ -73,6 +78,11 @@ class ModelConfig:
     sub_quadratic: bool = False        # can run long_500k decode
     # numerics
     dtype: str = "bfloat16"
+    remat: bool = True
+    # "nothing": full remat; "dots": save every matmul output without batch
+    # dimensions; "blk_out": save only the named per-block outputs
+    # (``attn_out``, ``ffn_out``).
+    remat_policy: str = "nothing"
     norm_upcast: bool = True           # False: bf16 RMSNorm
 
     @property
@@ -103,6 +113,79 @@ def layer_slots(cfg: ModelConfig):
             for pi, kind in enumerate(pat)]
 
 
+def superblocks(cfg: ModelConfig):
+    """(first, end) layer of every superblock, one repeat of a group's
+    pattern, in layer order."""
+    out, lo = [], 0
+    for pat, n_rep in cfg.layer_groups():
+        for _ in range(n_rep):
+            out.append((lo, lo + len(pat)))
+            lo += len(pat)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: ``x`` (a copy) under a name
+    that a remat policy can save by (``"blk_out"``)."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BLOCK_OUTPUTS = ("attn_out", "ffn_out")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products without batch dimensions (``x @ w``, which PyTorch runs as
+    ``mm``); recompute batched products (``bmm``) and the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_block_outputs(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out", "ffn_out")``."""
+    if op is torch.ops.repro_torch.checkpoint_name.default and \
+            args[1] in _BLOCK_OUTPUTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"dots": _save_dots, "blk_out": _save_block_outputs}
+
+
+def _superblock(blocks, x, tag):
+    for block in blocks:
+        x = block(x, tag=tag)
+    return x
+
+
+def _remat(blocks, x, policy: str):
+    """The superblock ``blocks`` on ``x``, its activations recomputed in
+    the backward pass but for what ``policy`` saves."""
+    if policy == "nothing":
+        return checkpoint(_superblock, blocks, x, None, use_reentrant=False)
+    if policy not in _POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    tag = checkpoint_name if policy == "blk_out" else None
+    return checkpoint(_superblock, blocks, x, tag, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _POLICIES[policy]))
+
+
 # ---------------------------------------------------------------------------
 # Blocks and the model
 # ---------------------------------------------------------------------------
@@ -115,9 +198,11 @@ def _is_attn(kind: str) -> bool:
 class Block(nn.Module):
     """Pre-norm residual block of one kind (``BLOCK_KINDS``), holding the
     reference's leaves: ``ln1``, ``attn`` + ``mlp``/``moe`` + ``ln2``,
-    ``ssm``, or ``rec`` + ``ln2`` + ``mlp``."""
+    ``ssm``, or ``rec`` + ``ln2`` + ``mlp``. Matmul weights take
+    ``dtype`` (``None``: the activation dtype)."""
 
-    def __init__(self, kind: str, cfg: ModelConfig, device=None):
+    def __init__(self, kind: str, cfg: ModelConfig, device=None,
+                 dtype=None):
         super().__init__()
         if kind not in BLOCK_KINDS:
             raise ValueError(kind)
@@ -126,16 +211,16 @@ class Block(nn.Module):
         self.ln1 = nn.Parameter(torch.empty(d, dtype=torch.float32,
                                             device=device))
         if _is_attn(kind):
-            self.attn = L.Attention(cfg, device)
+            self.attn = L.Attention(cfg, device, dtype)
             if kind.startswith("moe"):
-                self.moe = L.MoE(cfg, device)
+                self.moe = L.MoE(cfg, device, dtype)
             else:
-                self.mlp = L.MLP(cfg, device=device)
+                self.mlp = L.MLP(cfg, device=device, dtype=dtype)
         elif kind == "ssm":
-            self.ssm = L.SSM(cfg, device)
+            self.ssm = L.SSM(cfg, device, dtype)
         else:
-            self.rec = L.RGLRU(cfg, device)
-            self.mlp = L.MLP(cfg, device=device)
+            self.rec = L.RGLRU(cfg, device, dtype)
+            self.mlp = L.MLP(cfg, device=device, dtype=dtype)
         if kind != "ssm":
             self.ln2 = nn.Parameter(torch.empty(d, dtype=torch.float32,
                                                 device=device))
@@ -148,19 +233,22 @@ class Block(nn.Module):
         for child in self.children():
             child.reset_parameters(self.cfg, generator)
 
-    def forward(self, x, cache=None, cache_index=None):
-        """Returns the block's output; ``cache`` is written in place."""
+    def forward(self, x, cache=None, cache_index=None, tag=None):
+        """Returns the block's output; ``cache`` is written in place.
+        ``tag`` (``checkpoint_name``) names the attention and FFN outputs
+        of an attention block for a remat policy."""
         cfg, kind = self.cfg, self.kind
         up = cfg.norm_upcast
         if _is_attn(kind):
             h = rms_norm(x, self.ln1, upcast=up)
-            x = x + L.attention_apply(self.attn, h, cfg,
-                                      local=kind.endswith("local"),
-                                      cache=cache, cache_index=cache_index)
+            attn_out = L.attention_apply(self.attn, h, cfg,
+                                         local=kind.endswith("local"),
+                                         cache=cache, cache_index=cache_index)
+            x = x + (attn_out if tag is None else tag(attn_out, "attn_out"))
             h = rms_norm(x, self.ln2, upcast=up)
-            if kind.startswith("moe"):
-                return x + L.moe_apply(self.moe, h, cfg)
-            return x + L.mlp_apply(self.mlp, h, cfg)
+            ffn = L.moe_apply(self.moe, h, cfg) if kind.startswith("moe") \
+                else L.mlp_apply(self.mlp, h, cfg)
+            return x + (ffn if tag is None else tag(ffn, "ffn_out"))
         state = None if cache is None else cache["state"]
         conv = None if cache is None else cache["conv"]
         h = rms_norm(x, self.ln1, upcast=up)
@@ -181,17 +269,21 @@ class Model(nn.Module):
     """Tied embedding ``embed (vocab, d)``, ``blocks`` in layer order and
     the final norm ``ln_f``. Built on ``device`` with uninitialised
     parameters; ``init_params`` draws them, ``convert.params_from_reference``
-    loads the reference's."""
+    loads the reference's. ``param_dtype`` is the dtype of the embedding
+    and the matmul weights: ``None`` means the activation dtype (serving);
+    training passes f32, the reference's masters."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.param_dtype = param_dtype or cfg.act_dtype
         self.embed = nn.Parameter(torch.empty(
-            cfg.vocab, cfg.d_model, dtype=cfg.act_dtype, device=device))
+            cfg.vocab, cfg.d_model, dtype=self.param_dtype, device=device))
         self.ln_f = nn.Parameter(torch.empty(
             cfg.d_model, dtype=torch.float32, device=device))
         self.blocks = nn.ModuleList(
-            Block(kind, cfg, device) for *_, kind in layer_slots(cfg))
+            Block(kind, cfg, device, self.param_dtype)
+            for *_, kind in layer_slots(cfg))
 
     def reset_parameters(self, generator) -> None:
         """The reference's ``init_params`` distributions, drawn from
@@ -205,12 +297,19 @@ class Model(nn.Module):
 
     def forward(self, tokens_or_embeds, cache=None):
         """Logits (B, S, V); with ``cache``, a cached prefill or decode step
-        that writes the cache and advances its index by S."""
+        that writes the cache and advances its index by S. Without a cache,
+        where autograd records and ``cfg.remat`` is set, each superblock
+        is rematerialised under ``cfg.remat_policy``."""
         cfg = self.cfg
         x = embed_tokens(self, tokens_or_embeds)
-        index = None if cache is None else cache.index
-        for i, block in enumerate(self.blocks):
-            x = block(x, None if cache is None else cache.layers[i], index)
+        if cache is None and cfg.remat and torch.is_grad_enabled():
+            for lo, hi in superblocks(cfg):
+                x = _remat(self.blocks[lo:hi], x, cfg.remat_policy)
+        else:
+            index = None if cache is None else cache.index
+            for i, block in enumerate(self.blocks):
+                x = block(x, None if cache is None else cache.layers[i],
+                          index)
         x = rms_norm(x, self.ln_f, upcast=cfg.norm_upcast)
         logits = x @ self.embed.to(x.dtype).T
         if cfg.logit_softcap:
@@ -220,13 +319,16 @@ class Model(nn.Module):
         return logits
 
 
-def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
+def init_params(cfg: ModelConfig, generator=None, device=None,
+                param_dtype=None) -> Model:
     """A ``Model`` on ``device`` (``None``: the CUDA device) with weights
-    drawn from ``generator`` (``None``: seed 0 on that device)."""
+    drawn from ``generator`` (``None``: seed 0 on that device) in
+    ``param_dtype`` (``Model``). The draws are f32 whatever the dtype, so
+    f32 masters round to the weights a ``param_dtype=None`` model holds."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    model = Model(cfg, device=dev)
+    model = Model(cfg, device=dev, param_dtype=param_dtype)
     model.reset_parameters(generator)
     return model
 
@@ -252,7 +354,7 @@ def forward(model: Model, tokens_or_embeds):
 
 
 def loss_fn(model: Model, batch: dict):
-    """Mean next-token cross-entropy (f32 logsumexp); forward only."""
+    """Mean next-token cross-entropy (f32 logsumexp)."""
     cfg = model.cfg
     inputs = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
     logits = forward(model, inputs).float()

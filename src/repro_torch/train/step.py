@@ -1,0 +1,112 @@
+"""Train step: loss -> grads -> AdamW, with optional microbatch accumulation
+and optional gradient compression (``repro_torch.train.grad_compress``).
+
+The port of ``src/repro/train/step.py``. Gradients come from autograd on
+``models.model.loss_fn`` (the model rematerialises each superblock in the
+backward pass under its ``remat_policy``); microbatches run one after
+another, their f32 gradients summed and divided once, as the reference's
+``lax.scan`` does. The step updates the state's model and moments in
+place and returns the state with its step advanced.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models.model import Model, ModelConfig, init_params, loss_fn
+from repro_torch.train.optimizer import (Hyper, adamw_init, adamw_update,
+                                         decayed)
+
+
+class TrainState(NamedTuple):
+    params: Model     # f32 master weights
+    opt: dict         # {"mu": {name: tensor}, "nu": {...}}
+    step: int
+
+
+def init_train_state(cfg: ModelConfig, generator=None,
+                     device=None) -> TrainState:
+    """A fresh state on ``device`` (``None``: CUDA): the model's f32
+    masters drawn from ``generator`` (``init_params``), zero moments."""
+    model = init_params(cfg, generator, device, param_dtype=torch.float32)
+    return TrainState(params=model, opt=adamw_init(model), step=0)
+
+
+@contextlib.contextmanager
+def _bf16_weights(model: Model):
+    """Within the block, every parameter of a reference leaf of rank 2 or
+    more (all but ``ln_f``) reads as one bf16 cast of its f32 master: its
+    module's parameter slot holds the cast tensor, the same at every use,
+    in the forward and in the backward's recomputation alike, so
+    gradients reach the master through one cast. The masters go back into
+    their slots on exit, in place and in order."""
+    swapped = []
+    for name in sorted(decayed(model.cfg)):
+        owner, _, attr = name.rpartition(".")
+        module = model.get_submodule(owner)
+        master = module._parameters[attr]
+        module._parameters[attr] = master.to(torch.bfloat16)
+        swapped.append((module, attr, master))
+    try:
+        yield
+    finally:
+        for module, attr, master in swapped:
+            module._parameters[attr] = master
+
+
+def loss_and_grads(model: Model, batch: dict, cast_bf16: bool = False):
+    """(loss, ``{name: f32 gradient}``) of ``loss_fn`` on ``batch``. With
+    ``cast_bf16`` the loss sees the f32 masters of every reference leaf of
+    rank 2 or more cast to bf16 once, as the reference casts the
+    ``p.ndim >= 2`` leaves of its stacked tree before the layer stack."""
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    with _bf16_weights(model) if cast_bf16 else contextlib.nullcontext():
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def make_train_step(cfg: ModelConfig, hyper: Hyper, microbatches: int = 1,
+                    compressor=None, cast_bf16: bool = False):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
+    holds tensors on the state's device.
+
+    cast_bf16: cast the f32 master weights to bf16 before the layer stack
+    (``loss_and_grads``), halving what a sharded step would gather.
+    compressor: ``hook(grads, state) -> (grads, state)`` applied to the
+    accumulated gradients before the optimizer.
+    """
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.params
+        if microbatches == 1:
+            loss, grads = loss_and_grads(model, batch, cast_bf16)
+        else:
+            micro = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=next(model.parameters()).device)
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in model.named_parameters()}
+            for i in range(microbatches):
+                mb_loss, g = loss_and_grads(
+                    model, {k: v[i] for k, v in micro.items()}, cast_bf16)
+                torch._foreach_add_(list(grads.values()),
+                                    [g[n] for n in grads])
+                loss = loss + mb_loss
+            loss = loss / microbatches
+            torch._foreach_div_(list(grads.values()), microbatches)
+        if compressor is not None:
+            grads, state = compressor(grads, state)
+        model, opt, metrics = adamw_update(model, grads, state.opt,
+                                           state.step, hyper)
+        metrics["loss"] = loss
+        return TrainState(params=model, opt=opt, step=state.step + 1), \
+            metrics
+
+    return train_step
