@@ -123,7 +123,23 @@ Phases, each printing one JSON line:
                rows into a ``TelemetryStore`` on the card and one on the
                CPU (synopses equal field by field, answers and stragglers
                equal, K3/K4 launched and held against their plain versions
-               on the build's first inputs of each shape).
+               on the build's first inputs of each shape);
+ 12. sharding — ``repro_torch.sharding``, ``launch.{mesh,specs,dryrun}``,
+               ``bench.roofline``, with the train phase's step (qwen3-0.6b,
+               batch 8 x 128): (a) its dry run on a one-device mesh in a
+               child process (a fake process group, fake tensors), the
+               predicted peak within 15% of the train phase's measured
+               ``max_memory_allocated`` and the matmul FLOPs within 1% of
+               ``dryrun.analytic_train_flops``; (b) one NCCL rank with a
+               (data=1, model=1) mesh, the state DTensors, 3 steps against
+               3 of the plain path from the same seed, parameters
+               ``torch.equal``; (c) qwen3-0.6b's ``train_4k``,
+               ``prefill_32k`` and ``decode_32k`` cells on the 256-rank
+               mesh and ``decode_32k`` on the 512-rank one, one child each,
+               then ``repro_torch.bench.run --only roofline``; per cell its
+               per-device FLOPs, bytes, wire bytes by kind, peak bytes,
+               trace seconds and dominant roofline term. (a), (b) and (c)
+               run side by side.
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 the last line. Without a CUDA device, or outside a checkout of the
@@ -2185,6 +2201,251 @@ def phase_train(card: str) -> tuple:
     return out, cases
 
 
+# -------------------------------------------------------------- phase 12
+
+# The sharding phase reuses the train phase's step: qwen3-0.6b at full
+# width, bf16 compute from f32 masters, remat "nothing", batch 8 x 128 of
+# TokenPipeline(seed=0), its command line's hyper-parameters for 20 steps.
+SHARDING_BATCH, SHARDING_SEQ, SHARDING_STEPS = 8, 128, 3
+SHARDING_HYPER = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# (a): the dry run's matmul FLOPs against the analytic count
+# (dryrun.analytic_train_flops), its peak against the train phase's
+# measured max_memory_allocated.
+SHARDING_FLOPS_RTOL, SHARDING_PEAK_RTOL = 0.01, 0.15
+# (c): qwen3-0.6b's cells of the reference's shapes (long_500k is skipped
+# by shape_supported for a full-attention architecture), one process each.
+SHARDING_CELLS = (("train_4k", "--single-pod"), ("prefill_32k", "--single-pod"),
+                  ("decode_32k", "--single-pod"), ("decode_32k", "--multi-pod"))
+
+
+def _child(fn: str, *args) -> subprocess.Popen:
+    """``fn(*args)`` of this module in a fresh Python process: the dry
+    run's fake process group and the card's NCCL group never share one,
+    and the CPU-bound traces run side by side. One intra-op thread each."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c.{fn}(*{args!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def sharding_predict(path: str) -> None:
+    """(a), in a child: the train phase's step dry-run on a one-device
+    (data=1, model=1) mesh; its record and the analytic FLOPs to
+    ``path``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    cfg = get_config(LM_ARCH)
+    t = time.perf_counter()
+    with D.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        res = D.trace_cell(cfg, {"kind": "train", "seq": SHARDING_SEQ,
+                                 "batch": SHARDING_BATCH},
+                           mesh, D.arch_rules(cfg, 1))
+    res["trace_s"] = time.perf_counter() - t
+    res["analytic_flops"] = D.analytic_train_flops(cfg, SHARDING_BATCH,
+                                                   SHARDING_SEQ)
+    Path(path).write_text(json.dumps(res))
+
+
+def sharding_mesh_step(path: str, port: int) -> None:
+    """(b), in a child: one NCCL rank, a (data=1, model=1) mesh installed,
+    the state sharded (every parameter and moment a DTensor, every
+    ``constrain`` a redistribute on the card), SHARDING_STEPS steps; then
+    the same steps of the plain path from the same seed. Both under
+    deterministic algorithms, as the loop runs them. The parameters are
+    compared on the host; the result goes to ``path``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.dryrun import arch_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import set_mesh
+    from repro_torch.train.loop import deterministic_algorithms, shard_batch
+    from repro_torch.train.optimizer import Hyper
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    torch.cuda.set_device(0)
+    cfg = get_config(LM_ARCH)
+    hyper = Hyper(**SHARDING_HYPER)
+    pipe = TokenPipeline(cfg.vocab, SHARDING_BATCH, SHARDING_SEQ, seed=0)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for label in ("mesh", "plain"):
+            set_mesh(mesh if label == "mesh" else None,
+                     arch_rules(cfg, 1) if label == "mesh" else None)
+            state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0))
+            if label == "mesh":
+                state = shard_state(state)
+            step = make_train_step(cfg, hyper)
+            losses, times = [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic_algorithms():
+                for i in range(SHARDING_STEPS):
+                    t = time.perf_counter()
+                    b = {k: torch.from_numpy(v).cuda()
+                         for k, v in pipe.host_slice(i).items()}
+                    if label == "mesh":
+                        b = shard_batch(b, mesh, SHARDING_BATCH, SHARDING_SEQ)
+                    state, metrics = step(state, b)
+                    losses.append(float(metrics["loss"]))
+                    times.append((time.perf_counter() - t) * 1e3)
+            kinds = sorted({type(p).__name__ for p in
+                            state.params.parameters()})
+            params = {n: (p.full_tensor() if hasattr(p, "full_tensor")
+                          else p).detach().cpu()
+                      for n, p in state.params.named_parameters()}
+            out[label] = {"losses": losses, "step_ms": times,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated(),
+                          "param_types": kinds, "params": params}
+            del state, step
+            torch.cuda.empty_cache()
+        set_mesh(None)
+        a, b = out["mesh"].pop("params"), out["plain"].pop("params")
+        diff = {n: float((a[n].double() - b[n].double()).abs().max())
+                for n in b if not torch.equal(a[n], b[n])}
+        out.update(equal=not diff, unequal_tensors=len(diff),
+                   worst=sorted(diff.items(), key=lambda kv: -kv[1])[:4],
+                   losses_equal=out["mesh"]["losses"] == out["plain"]["losses"])
+    finally:
+        dist.destroy_process_group()
+    Path(path).write_text(json.dumps(out))
+
+
+def _wait(proc: subprocess.Popen, label: str, timeout: float) -> str:
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise TimeoutError(f"sharding: {label} did not finish in {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"sharding: {label} exited {proc.returncode}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    return stdout
+
+
+def phase_sharding(card: str, train_out: dict) -> dict:
+    """(a) the dry run's prediction of the train phase's step against its
+    measurement; (b) the step on a (1, 1) mesh, DTensors on the card,
+    against the plain step; (c) qwen3-0.6b's reference cells dry-run on
+    the production meshes (256 and 512 fake ranks) and the roofline suite
+    on them. (a), (b) and the cells run as child processes side by side."""
+    import os
+    import socket
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
+    from repro_torch.launch.dryrun import cell_path
+    t_phase = time.perf_counter()
+    out_dir = OUT_DIR / "sharding"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = {"predict": _child("sharding_predict",
+                               str(out_dir / "predict.json")),
+             "mesh_step": _child("sharding_mesh_step",
+                                 str(out_dir / "mesh_step.json"), port)}
+    cell_of = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for shape, mesh in SHARDING_CELLS:
+        label = f"{shape}{mesh.replace('-pod', '').replace('--', '/')}"
+        cell_of[label] = (shape, mesh)
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_ARCH, "--shape", shape, mesh, "--force"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    logs, failed = {}, []
+    try:
+        for label, p in procs.items():
+            try:
+                logs[label] = _wait(p, label, 600)
+            except (AssertionError, TimeoutError) as exc:
+                failed.append(str(exc))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    for shape, mesh in SHARDING_CELLS:
+        name = "multi_pod" if mesh == "--multi-pod" else "single_pod"
+        src = Path(cell_path(LM_ARCH, shape, name))
+        if src.exists():
+            (out_dir / src.name).write_text(src.read_text())
+    if failed:
+        raise AssertionError("\n".join(failed))
+    bad = []
+    pred = json.loads((out_dir / "predict.json").read_text())
+    measured = train_out["full_width"]["max_memory_allocated"]
+    peak = pred["memory_analysis"]["peak_bytes"]
+    flops = pred["cost_analysis"]["flops"]
+    predict = {"peak_bytes": peak, "measured_peak_bytes": measured,
+               "peak_rel": peak / measured - 1,
+               "flops": flops, "analytic_flops": pred["analytic_flops"],
+               "flops_rel": flops / pred["analytic_flops"] - 1,
+               "memory_analysis": pred["memory_analysis"],
+               "bytes_accessed": pred["cost_analysis"]["bytes accessed"],
+               "trace_s": pred["trace_s"]}
+    if abs(predict["flops_rel"]) > SHARDING_FLOPS_RTOL:
+        bad.append(f"dry-run FLOPs {flops} vs analytic "
+                   f"{pred['analytic_flops']}")
+    if abs(predict["peak_rel"]) > SHARDING_PEAK_RTOL:
+        bad.append(f"dry-run peak {peak} vs measured {measured}")
+    step = json.loads((out_dir / "mesh_step.json").read_text())
+    if not step["equal"]:
+        bad.append(f"(1, 1)-mesh step differs from the plain step: "
+                   f"{step['worst']}")
+    if step["mesh"]["param_types"] != ["DTensor"]:
+        bad.append(f"mesh parameters are {step['mesh']['param_types']}")
+    if bench_run.main(["--only", "roofline", "--out",
+                       str(OUT_DIR / "bench")]) != 0:
+        bad.append("the roofline suite failed")
+    cells = []
+    for label, (shape, mesh) in cell_of.items():
+        name = "multi_pod" if mesh == "--multi-pod" else "single_pod"
+        rec = json.loads(Path(cell_path(LM_ARCH, shape, name)).read_text())
+        if not rec.get("ok"):
+            bad.append(f"cell {label} failed: {rec.get('error')}")
+            cells.append({"cell": label, "ok": False,
+                          "error": rec.get("error")})
+            continue
+        coll = rec["collectives"]
+        wire = sum(v["wire_bytes_per_device"] for v in coll.values())
+        terms = {"compute": rec["cost_analysis"]["flops"] / PEAK_FLOPS,
+                 "memory": rec["cost_analysis"]["bytes accessed"] / HBM_BW,
+                 "collective": wire / LINK_BW}
+        cells.append({
+            "cell": label, "ok": True, "mesh": rec["mesh"],
+            "flops_per_device": rec["cost_analysis"]["flops"],
+            "bytes_per_device": rec["cost_analysis"]["bytes accessed"],
+            "wire_bytes_by_kind": {k: v["wire_bytes_per_device"]
+                                   for k, v in coll.items()},
+            "peak_bytes": rec["memory_analysis"]["peak_bytes"],
+            "trace_s": rec["trace_s"], "terms_s": terms,
+            "dominant": max(terms, key=terms.get)})
+    out = {"phase": "sharding", "card": card, "arch": LM_ARCH,
+           "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
+           "mesh_step": step, "cells": cells,
+           "dryrun_log": {k: v.strip().splitlines()[-1:] for k, v in
+                          logs.items() if k in cell_of},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bad:
+        raise AssertionError(f"sharding phase failed: {bad}")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2219,6 +2480,7 @@ def main(argv=None) -> int:
         phase_lm(info["nvidia_smi"])
         train_out, train_cases = phase_train(info["nvidia_smi"])
         cases = cases + train_cases
+        phase_sharding(info["nvidia_smi"], train_out)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

@@ -8,9 +8,9 @@ naming its device and card, to ``DIR`` (``build/bench_torch/`` by default).
 Runs on the CUDA device unless ``--device cpu``; without a card a suite
 raises, it never falls back to the CPU. Every suite of the reference is
 ported (``construction``, ``kernels``, ``storage``, ``serving``, ``fig8``,
-``fig9``, ``table5``, ``table6``, ``fig11``) except ``roofline``, which
-reads the LM stack's dry-run artifacts and raises with the ROADMAP item it
-waits for.
+``fig9``, ``table5``, ``table6``, ``fig11``, ``roofline``); ``roofline``
+reads the dry run's artifacts (``repro_torch.launch.dryrun``) and runs on
+no device.
 """
 from __future__ import annotations
 
@@ -22,18 +22,13 @@ import traceback
 
 SUITES = ("construction", "kernels", "storage", "serving", "fig8", "fig9",
           "table5", "table6", "fig11", "roofline")
-PORTED = {name: f"repro_torch.bench.{name}" for name in SUITES
-          if name != "roofline"}
+PORTED = {name: f"repro_torch.bench.{name}" for name in SUITES}
 
 
 def suite(name: str):
-    """The module of a ported suite; raises for the others."""
+    """The module of a suite; raises for an unknown name."""
     if name not in SUITES:
         raise ValueError(f"unknown suite {name!r}; choose from {SUITES}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"suite {name!r} is not ported to repro_torch yet: ROADMAP.md "
-            f"Queue 1, item 6 (the LM-side stack and its dry run)")
     return importlib.import_module(PORTED[name])
 
 

@@ -17,8 +17,12 @@ A ``TrainState`` is saved in the reference's layout and under its keys
 (``.params/groups/0/0_attn/attn/wq``, ``.opt/mu/...``, ``.step``): each
 leaf of a layer group stacked along its repeat axis
 (``convert.reference_leaves``), so the two packages read each other's
-checkpoints. Restore takes the ``device`` to load onto where the reference
-takes shardings.
+checkpoints. Restore takes the ``device`` to load onto.
+
+Elastic restore: a sharded state (DTensors on an installed mesh) is saved
+in logical, unsharded form (every rank joins the gather; rank 0 writes),
+so it restores onto any mesh, or none: ``restore(placements=...)`` lays
+each tensor out on the installed mesh.
 """
 from __future__ import annotations
 
@@ -35,7 +39,20 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.model import Model
+from repro_torch.sharding import get_mesh
 from repro_torch.train.step import TrainState
+
+
+def _full(t):
+    """``t`` whole on this rank: a DTensor is gathered (a collective every
+    rank must join)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _writer() -> bool:
+    """Rank 0 writes; every rank reads."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _leaves(state):
@@ -62,10 +79,13 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save
 
     def save(self, step: int, state, blocking: bool = False):
-        """Snapshot to host memory synchronously; serialize async."""
+        """Snapshot to host memory synchronously; serialize async. Under
+        a mesh every rank must call it (the gather); rank 0 writes."""
         self.wait()  # one in-flight save at a time
-        host = [(key, [t.detach().to("cpu", copy=True) for t in ts],
+        host = [(key, [_full(t.detach()).to("cpu", copy=True) for t in ts],
                  stacked) for key, ts, stacked in _leaves(state)]
+        if not _writer():
+            return
         host.append((".step", [torch.tensor(int(state.step),
                                             dtype=torch.int32)], False))
         if self.async_save and not blocking:
@@ -151,12 +171,19 @@ class CheckpointManager:
         except (OSError, ValueError, KeyError):
             return None
 
-    def restore(self, like, step: int | None = None, device=None):
+    def restore(self, like, step: int | None = None, device=None,
+                placements: dict | None = None):
         """Restore into the structure of ``like`` (a ``TrainState``) on
         ``device`` (``None``: CUDA). Skips back past corrupt checkpoints
         and past those whose keys or shapes differ from ``like``'s (a
         different model). Returns (step, state) or (None, None) if nothing
-        valid exists. The restored tensors take ``like``'s dtypes."""
+        valid exists. The restored tensors take ``like``'s dtypes.
+
+        ``placements`` (``{parameter name: DTensor placements}``, as
+        ``models.model.model_placements`` gives): each parameter and its
+        moments become DTensors of those placements on the installed
+        mesh, each rank keeping its own shards (every rank reads the
+        files)."""
         dev = resolve_device(device)
         like_leaves = _leaves(like)
         candidates = self.all_steps()
@@ -176,13 +203,15 @@ class CheckpointManager:
                    + tuple(ts[0].shape)
                    for k, ts, stacked in like_leaves):
                 continue
-            return cand, self._rebuild(like, arrays, dev)
+            return cand, self._rebuild(like, arrays, dev, placements)
         return None, None
 
     @staticmethod
-    def _rebuild(like, arrays: dict, dev) -> TrainState:
+    def _rebuild(like, arrays: dict, dev, placements=None) -> TrainState:
         """A new ``TrainState`` on ``dev`` from ``arrays`` (checked against
-        ``like``'s keys and shapes), in ``like``'s dtypes."""
+        ``like``'s keys and shapes), in ``like``'s dtypes, laid out by
+        ``placements`` on the installed mesh when given."""
+        from torch.distributed.tensor import distribute_tensor
         model = like.params
         slots = {name: (leaf.key, rep, leaf.stacked)
                  for leaf in reference_leaves(model.cfg)
@@ -192,9 +221,13 @@ class CheckpointManager:
             out = {}
             for name, (key, rep, stacked) in slots.items():
                 arr = arrays[f"{prefix}/{key}"]
-                out[name] = torch.from_numpy(np.ascontiguousarray(
+                t = torch.from_numpy(np.ascontiguousarray(
                     arr[rep] if stacked else arr)).to(
                         device=dev, dtype=tensors[name].dtype)
+                if placements is not None:
+                    t = distribute_tensor(t, get_mesh(), placements[name],
+                                          src_data_rank=None)
+                out[name] = t
             return out
 
         new_model = Model(model.cfg, device="meta",

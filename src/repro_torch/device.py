@@ -8,12 +8,13 @@ def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA device; raise when CUDA is absent.
 
     Only an explicit ``device="cpu"`` runs the port on the CPU (through the
-    kernels' plain PyTorch versions), as the tests do.
+    kernels' plain PyTorch versions), as the tests do; ``"meta"`` makes
+    shapes without data (the dry run's specs).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

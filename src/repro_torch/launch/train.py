@@ -5,11 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --steps 3 --smoke --device cpu           # CPU-sized smoke run
 
+    torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+        --mesh single                            # (data=16, model=16), NCCL
+
 The reference's flags and defaults, plus ``--device``: without it the run
 is on the CUDA device and fails without one. ``--smoke`` takes the
 architecture's reduced config in f32; otherwise the published config
-computes in its dtype from f32 master weights. Sharded meshes (``--mesh
-single|multi``) are not ported yet (ROADMAP Queue 1 item 6c).
+computes in its dtype from f32 master weights. ``--mesh single|multi``
+installs the production mesh (``launch.mesh``; 256 or 512 ranks, each
+under ``torchrun``, NCCL) with the dry run's rules for the architecture
+and trains sharded; with any other world size it raises, naming the one
+it needs.
 """
 from __future__ import annotations
 
@@ -39,23 +45,46 @@ def parse(argv=None) -> argparse.Namespace:
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--mesh", choices=("none", "single", "multi"),
                     default="none",
-                    help="a sharded mesh (not ported: ROADMAP item 6c)")
+                    help="the production mesh: single (256 ranks) or multi "
+                         "(512), under torchrun")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the host (default: the CUDA "
                          "device)")
     return ap.parse_args(argv)
 
 
+def install_mesh(kind: str, cfg):
+    """Join the ``torchrun`` job (NCCL), pin this rank's card and install
+    the production mesh of ``kind`` with ``dryrun.arch_rules``; raises
+    unless the job has the mesh's 256 or 512 ranks. Returns the rank's
+    device."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import arch_rules
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import set_mesh
+    need = 512 if kind == "multi" else 256
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != need:
+        raise RuntimeError(f"--mesh {kind} needs {need} ranks under "
+                           f"torchrun (WORLD_SIZE={need}); this run has "
+                           f"{world}")
+    dist.init_process_group("nccl")
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(device)
+    mesh = make_production_mesh(multi_pod=kind == "multi")
+    set_mesh(mesh, arch_rules(cfg, mesh.size(mesh.mesh_dim_names.index(
+        "model"))))
+    return device
+
+
 def run(args: argparse.Namespace, telemetry=None):
     """Train as ``args`` say; returns (final TrainState, history)."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training is not ported yet "
-            "(ROADMAP Queue 1 item 6c)")
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype="float32")
+    device = install_mesh(args.mesh, cfg) if args.mesh != "none" \
+        else resolve_device(args.device)
     compressor = None
     if args.grad_compress:
         from repro_torch.train.grad_compress import GDQuantizer

@@ -13,9 +13,15 @@ the router, ``A_log``, ``dt_bias``, ``D`` and ``lam`` are f32.
 Attention is chunked: f32 scores per query chunk, never (S, S). Caches are
 preallocated tensors written in place; the position of the next token is
 a Python int shared by every slot.
+
+Each layer has the reference's ``*_axes`` function (the logical axes of
+its parameters or cache leaves) and ``constrain``s its activations where
+the reference does; without a mesh (``sharding.set_mesh``) both change
+nothing, with one the parameters, caches and activations are DTensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import (apply_rope, gelu, make_rope,
                                        rms_norm, sigmoid, silu, softcap,
                                        softplus, trunc_normal_)
+from repro_torch.sharding import constrain, get_mesh
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -70,6 +77,16 @@ class Attention(nn.Module):
                 self.k_norm.zero_()
 
 
+def attention_axes(cfg):
+    return {
+        "wq": ("fsdp", "heads", None),
+        "wk": ("fsdp", "kv_heads", None),
+        "wv": ("fsdp", "kv_heads", None),
+        "wo": ("heads", None, "fsdp"),
+        **({"q_norm": (None,), "k_norm": (None,)} if cfg.qk_norm else {}),
+    }
+
+
 _NEG_POS = -(2**30)
 
 
@@ -107,6 +124,93 @@ def _chunked_attention(q, k, v, *, q_positions, kv_positions, window, cap,
     return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
 
 
+def _attention(q, k, v, **kw):
+    """``_chunked_attention``; on DTensors (under a mesh) each rank runs it
+    on its shards (``local_map``): batch and kv heads split the work, and
+    a key/value sequence sharded over a mesh dim (the ``kv_seq`` cache)
+    is combined by a distributed softmax (``_seq_sharded_attention``)."""
+    if get_mesh() is None or not hasattr(q, "placements"):
+        return _chunked_attention(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q_pl, kv_pl, seq_dims = [], [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pk.is_shard(1):
+            seq_dims.append(i)
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(1))
+        elif pq.is_shard(2) or pk.is_shard(2):
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2))
+        elif pq.is_shard(0) or pk.is_shard(0):
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    if len(seq_dims) > 1:
+        raise NotImplementedError("a key/value sequence sharded over more "
+                                  "than one mesh dim")
+    q, k, v = (t.redistribute(mesh, pl) for t, pl in
+               ((q, q_pl), (k, kv_pl), (v, kv_pl)))
+    rep = [Replicate()] * mesh.ndim
+    q_pos, kv_pos = (_replicated(t, mesh) for t in
+                     (kw.pop("q_positions"), kw.pop("kv_positions")))
+    if seq_dims:
+        (dim,) = seq_dims
+        lo = mesh.get_local_rank(dim) * (k.shape[1] // mesh.size(dim))
+        fn = functools.partial(_seq_sharded_attention,
+                               group=mesh.get_group(dim), lo=lo, **kw)
+    else:
+        fn = functools.partial(_local_attention, **kw)
+    return local_map(fn, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl, rep, rep),
+                     device_mesh=mesh)(q, k, v, q_pos, kv_pos)
+
+
+def _replicated(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _local_attention(q, k, v, q_positions, kv_positions, **kw):
+    return _chunked_attention(q, k, v, q_positions=q_positions,
+                              kv_positions=kv_positions, **kw)
+
+
+def _seq_sharded_attention(q, k, v, q_positions, kv_positions, *, group,
+                           lo: int, window, cap, chunk):
+    """Attention of ``q`` over this rank's slice ``[lo, lo + Skv_local)``
+    of the key/value sequence, combined over ``group`` (the ranks holding
+    the other slices): the max and the sums of the softmax are
+    all-reduced (a distributed softmax), as the reference's decode over a
+    sequence-sharded cache does. Forward only (decoding)."""
+    from torch.distributed import _functional_collectives as funcol
+    b, sq, hkv, g, dh = q.shape
+    kv_pos = kv_positions[lo:lo + k.shape[1]][None, :]
+    q_pos = q_positions[:, None]
+    s = torch.einsum("bchgd,bshd->bhgcs", q.float(), k.float()) \
+        * (1.0 / math.sqrt(dh))
+    if cap is not None:
+        s = softcap(s, cap)
+    causal = (kv_pos <= q_pos) & (kv_pos >= 0)
+    if window is not None:
+        causal &= kv_pos > (q_pos - window)
+    s = torch.where(causal, s, -1e30)
+    m = funcol.wait_tensor(funcol.all_reduce(
+        torch.amax(s, -1, keepdim=True), "max", group))
+    p = torch.exp(s - m)
+    den = funcol.wait_tensor(funcol.all_reduce(p.sum(-1), "sum", group))
+    num = funcol.wait_tensor(funcol.all_reduce(
+        torch.einsum("bhgcs,bshd->bhgcd", p, v.float()), "sum", group))
+    out = num / den[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
 def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     """Full-sequence path when cache is None; else cached prefill/decode.
 
@@ -121,9 +225,9 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     g = h // hkv
     window = cfg.window if local else None
 
-    q = (x @ p.wq.to(x.dtype).reshape(d, h * dh)).view(b, s, h, dh)
-    k = (x @ p.wk.to(x.dtype).reshape(d, hkv * dh)).view(b, s, hkv, dh)
-    v = (x @ p.wv.to(x.dtype).reshape(d, hkv * dh)).view(b, s, hkv, dh)
+    q = _split_heads(x @ p.wq.to(x.dtype).reshape(d, h * dh), h)
+    k = _split_heads(x @ p.wk.to(x.dtype).reshape(d, hkv * dh), hkv)
+    v = _split_heads(x @ p.wv.to(x.dtype).reshape(d, hkv * dh), hkv)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -133,36 +237,155 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     cos, sin = make_rope(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    qg = q.view(b, s, hkv, g, dh)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+    qg = _group_heads(q, hkv, g)
 
     if cache is None or s > 1:
         # Full sequence, or prefill from an empty cache: attend within the
         # prompt itself; the cache receives the tail needed for decoding.
-        out = _chunked_attention(qg, k, v, q_positions=positions,
-                                 kv_positions=positions, window=window,
-                                 cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+        out = _attention(qg, k, v, q_positions=positions,
+                         kv_positions=positions, window=window,
+                         cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         if cache is not None:
             eff = cache["k"].shape[1]
             take = min(s, eff)
             # Ring invariant: position p lives in slot p % eff, so later
             # decode writes (at index % eff) overwrite the right slots.
-            shift = (s - take) % eff
-            cache["k"][:, :take] = torch.roll(k[:, -take:], shift, dims=1)
-            cache["v"][:, :take] = torch.roll(v[:, -take:], shift, dims=1)
-            cache["pos"][:take] = torch.roll(positions[-take:], shift, dims=0)
+            _ring_write(cache, 0, k[:, -take:], v[:, -take:],
+                        positions[-take:], shift=(s - take) % eff)
     else:
         # Single-token decode: ring write at index % eff, mask by positions.
         eff = cache["k"].shape[1]
-        slot = cache_index % eff
-        cache["k"][:, slot:slot + 1] = k
-        cache["v"][:, slot:slot + 1] = v
-        cache["pos"][slot:slot + 1] = positions
-        out = _chunked_attention(qg, cache["k"], cache["v"],
-                                 q_positions=positions,
-                                 kv_positions=cache["pos"], window=window,
-                                 cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
-    out = out.reshape(b, s, h * dh)
-    return out @ p.wo.to(x.dtype).reshape(h * dh, d)
+        _ring_write(cache, cache_index % eff, k, v, positions)
+        out = _attention(qg, cache["k"], cache["v"], q_positions=positions,
+                         kv_positions=cache["pos"], window=window,
+                         cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+    # Back to q's head sharding before the heads merge (under a mesh; the
+    # backward splits the merged heads again, see _GradWhole).
+    out = constrain(out.reshape(b, s, h, dh), "batch", None, "heads", None)
+    out = _grad_whole(out.reshape(b, s, h * dh), 2, h)
+    out = out @ p.wo.to(x.dtype).reshape(h * dh, d)
+    return constrain(out, "batch", "resid_seq", "resid_embed")
+
+
+def _split_heads(t, n: int):
+    """(B, S, n * dh) -> (B, S, n, dh). A DTensor whose last dim is
+    sharded over more ranks than ``n`` divides (DTensor may shard a
+    projection's output columns where the heads do not divide) is first
+    replicated there."""
+    b, s, width = t.shape
+    return _replicated_dim(t, 2, n).view(b, s, n, width // n)
+
+
+def _replicated_dim(t, dim: int, n: int):
+    """``t``, on DTensors replicated on the mesh dims that shard ``dim``
+    when their product does not divide ``n``."""
+    if get_mesh() is None or not hasattr(t, "placements"):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = t.device_mesh
+    k = 1
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            k *= mesh.size(i)
+    if n % k == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl
+                                 for pl in t.placements])
+
+
+class _GradWhole(torch.autograd.Function):
+    """Identity whose gradient is ``_replicated_dim``'s: the backward's
+    split of merged heads needs a gradient whose heads dim divides."""
+
+    @staticmethod
+    def forward(ctx, t, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _replicated_dim(grad, ctx.dim, ctx.n), None, None
+
+
+def _grad_whole(t, dim: int, n: int):
+    """``t``; on DTensors its gradient is replicated on ``dim`` where the
+    shard does not divide ``n`` (``_GradWhole``)."""
+    if get_mesh() is None or not hasattr(t, "placements"):
+        return t
+    return _GradWhole.apply(t, dim, n)
+
+
+def _group_heads(q, hkv: int, g: int):
+    """(B, S, H, dh) -> (B, S, Hkv, G, dh). A DTensor whose heads are
+    sharded over more ranks than ``hkv`` divides is first replicated on
+    them: one mesh dim cannot shard two tensor dims, as GSPMD's split of
+    the heads' shard over (Hkv, G) would."""
+    b, s, h, dh = q.shape
+    return _replicated_dim(q, 2, hkv).reshape(b, s, hkv, g, dh)
+
+
+def _ring_write(cache: dict, slot: int, k, v, positions,
+                shift: int = 0) -> None:
+    """Write ``k``/``v`` (B, n, Hkv, dh) and ``positions`` (n,), each
+    rolled by ``shift`` along the sequence, into the cache's slots ``slot ..
+    slot + n``, in place. Under a mesh the cache is a DTensor and each
+    rank writes its own shard's part of the slots (``_write_local``): a
+    slice of a sharded dim is not a view of it."""
+    n = k.shape[1]
+    if get_mesh() is None:
+        if shift:
+            k, v = (torch.roll(t, shift, dims=1) for t in (k, v))
+            positions = torch.roll(positions, shift, dims=0)
+        cache["k"][:, slot:slot + n] = k
+        cache["v"][:, slot:slot + n] = v
+        cache["pos"][slot:slot + n] = positions
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    for key, new in (("k", k), ("v", v), ("pos", positions)):
+        dst = cache[key]
+        if not isinstance(new, DTensor):  # positions: the same on every rank
+            new = DTensor.from_local(new, dst.device_mesh,
+                                     [Replicate()] * dst.device_mesh.ndim,
+                                     run_check=False)
+        _write_local(dst, new, 0 if key == "pos" else 1, slot, shift)
+
+
+def _write_local(dst, new, dim: int, slot: int, shift: int) -> None:
+    """``dst[..., slot:slot + n, ...] = roll(new, shift)`` along ``dim`` on
+    DTensors: ``new`` is brought to ``dst``'s placements but on ``dim``,
+    which it keeps whole (replicated on the mesh dims that shard ``dim``
+    in ``dst``) and is rolled locally (DTensor has no ``roll`` strategy on
+    some PyTorch releases); each rank copies the rows of the slots that
+    its shard of ``dst`` holds."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+            for pl in dst.placements]
+    src = new.redistribute(mesh, want).to_local()
+    if shift:
+        src = torch.roll(src, shift, dim)
+    local = dst.to_local()
+    lo, size = 0, dst.shape[dim]
+    for mdim, pl in enumerate(dst.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            size //= mesh.size(mdim)
+            lo += mesh.get_local_rank(mdim) * size
+    a, b = max(slot, lo), min(slot + new.shape[dim], lo + size)
+    if a < b:
+        local.narrow(dim, a - lo, b - a).copy_(src.narrow(dim, a - slot,
+                                                          b - a))
+
+
+def attention_cache_axes():
+    # "kv_seq" is the fallback shard axis when kv heads don't divide the
+    # tensor axis (the dry run's rules enable exactly one of kv_heads and
+    # kv_seq).
+    return {"k": ("batch", "kv_seq", "kv_heads", None),
+            "v": ("batch", "kv_seq", "kv_heads", None),
+            "pos": (None,)}
 
 
 def attention_cache(cfg, batch: int, max_len: int, dtype, local: bool = False,
@@ -204,10 +427,16 @@ class MLP(nn.Module):
         trunc_normal_(self.w2, 1.0 / math.sqrt(f), generator)
 
 
+def mlp_axes():
+    return {"w1": ("fsdp", "tensor"), "w3": ("fsdp", "tensor"),
+            "w2": ("tensor", "fsdp")}
+
+
 def mlp_apply(p, x, cfg):
     """SwiGLU (``mlp_act="silu"``) or GeGLU with the tanh GELU."""
     act = _act(cfg)
     hcur = act(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
+    hcur = constrain(hcur, "batch", None, "tensor")
     return hcur @ p.w2.to(x.dtype)
 
 
@@ -243,6 +472,18 @@ class MoE(nn.Module):
             self.shared.reset_parameters(cfg, generator)
 
 
+def moe_axes(cfg):
+    ax = {
+        "router": ("fsdp", None),
+        "w1": ("expert", "fsdp", None),
+        "w3": ("expert", "fsdp", None),
+        "w2": ("expert", None, "fsdp"),
+    }
+    if cfg.n_shared > 0:
+        ax["shared"] = mlp_axes()
+    return ax
+
+
 def moe_apply(p, x, cfg):
     """Top-k MoE FFN. Two dispatch implementations (cfg.moe_impl):
 
@@ -270,11 +511,43 @@ def _moe_router(p, x, cfg):
 
 
 def _moe_ffn(p, xin, cfg):
-    """xin: (B, E, C, D) -> (B, E, C, D)."""
-    act = _act(cfg)
-    hcur = act(torch.einsum("becd,edf->becf", xin, p.w1.to(xin.dtype)))
-    hcur = hcur * torch.einsum("becd,edf->becf", xin, p.w3.to(xin.dtype))
-    return torch.einsum("becf,efd->becd", hcur, p.w2.to(xin.dtype))
+    """xin: (B, E, C, D) -> (B, E, C, D). On DTensors each rank runs its
+    batch rows through its experts (``local_map``; DTensor's einsum
+    backward here views a non-contiguous shard), the experts' weights
+    gathered over their ``fsdp`` dim."""
+    w = [t.to(xin.dtype) for t in (p.w1, p.w3, p.w2)]
+    fn = functools.partial(_expert_ffn, act=_act(cfg))
+    if get_mesh() is None or not hasattr(xin, "placements"):
+        return fn(xin, *w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xin.device_mesh
+    x_pl, w_pl, w_grad = [], [], []
+    for pl in xin.placements:
+        if pl.is_shard(0):                      # batch rows
+            x_pl.append(Shard(0))
+            w_pl.append(Replicate())
+            w_grad.append(Partial())
+        elif pl.is_shard(1):                    # experts
+            x_pl.append(Shard(1))
+            w_pl.append(Shard(0))
+            w_grad.append(Shard(0))
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            w_grad.append(Replicate())
+    xin = xin.redistribute(mesh, x_pl)
+    w = [t.redistribute(mesh, w_pl) for t in w]
+    return local_map(fn, out_placements=x_pl,
+                     in_placements=(x_pl, w_pl, w_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad, w_grad, w_grad),
+                     device_mesh=mesh)(xin, *w)
+
+
+def _expert_ffn(xin, w1, w3, w2, act):
+    hcur = act(torch.einsum("becd,edf->becf", xin, w1))
+    hcur = hcur * torch.einsum("becd,edf->becf", xin, w3)
+    return torch.einsum("becf,efd->becd", hcur, w2)
 
 
 def _moe_apply_sort(p, x, cfg):
@@ -310,7 +583,7 @@ def _moe_apply_sort(p, x, cfg):
     out.scatter_add_(1, st[..., None].expand(b, s * k, d), contrib)
     if cfg.n_shared > 0:
         out = out + mlp_apply(p.shared, x, cfg)
-    return out
+    return constrain(out, "batch", "resid_seq", "resid_embed")
 
 
 def _moe_apply_einsum(p, x, cfg):
@@ -335,12 +608,14 @@ def _moe_apply_einsum(p, x, cfg):
     disp = pos_oh * keep[..., None].to(x.dtype)                # (B,S,E,C)
 
     xin = torch.einsum("bsec,bsd->becd", disp, x)              # (B,E,C,D)
+    xin = constrain(xin, "batch", "expert", None, None)
     eout = _moe_ffn(p, xin, cfg)
+    eout = constrain(eout, "batch", "expert", None, None)
     out = torch.einsum("becd,bsec->bsd", eout,
                        disp * comb.to(x.dtype)[..., None])
     if cfg.n_shared > 0:
         out = out + mlp_apply(p.shared, x, cfg)
-    return out
+    return constrain(out, "batch", "resid_seq", "resid_embed")
 
 
 def moe_aux_loss(p, x, cfg):
@@ -391,6 +666,12 @@ class SSM(nn.Module):
             self.D.fill_(1.0)
 
 
+def ssm_axes():
+    return {"in_proj": ("fsdp", "tensor"), "conv_w": (None, "tensor"),
+            "A_log": (None,), "dt_bias": (None,), "D": (None,),
+            "out_proj": ("tensor", "fsdp")}
+
+
 def _causal_conv(x, w, carry=None):
     """Depthwise causal conv along seq. x: (B,S,C), w: (W,C).
 
@@ -407,6 +688,83 @@ def _causal_conv(x, w, carry=None):
     y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(width))
     new_carry = xp[:, -(width - 1):]
     return y, new_carry
+
+
+def _ssd(xs, bmat, cmat, dt, da, state, *, q: int, intra_dt):
+    """``_ssd_chunks``; on DTensors each rank runs it on its heads and
+    batch rows (``local_map``: every head's recurrence is its own; DTensor
+    finds no strategy for the SSD's 4-operand einsums in reasonable time).
+    ``bmat``/``cmat`` are shared by the heads, so their gradients are
+    partial sums over the ranks that split the heads."""
+    if get_mesh() is None or not hasattr(xs, "placements"):
+        return _ssd_chunks(xs, bmat, cmat, dt, da, state, q, intra_dt)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs.device_mesh
+    heads = [Shard(2) if pl.is_shard(2) else
+             Shard(0) if pl.is_shard(0) else Replicate()
+             for pl in xs.placements]
+    rows = [Shard(0) if pl.is_shard(0) else Replicate() for pl in heads]
+    rows_grad = [Partial() if pl.is_shard(2) else r
+                 for pl, r in zip(heads, rows)]
+    st = [Shard(1) if pl.is_shard(2) else pl for pl in heads]
+    xs, dt, da = (t.redistribute(mesh, heads) for t in (xs, dt, da))
+    bmat, cmat = (t.redistribute(mesh, rows) for t in (bmat, cmat))
+    if state is not None:
+        state = state.redistribute(mesh, st)
+    fn = local_map(functools.partial(_ssd_chunks, q=q, intra_dt=intra_dt),
+                   out_placements=(heads, st),
+                   in_placements=(heads, rows, rows, heads, heads,
+                                  None if state is None else st),
+                   in_grad_placements=(heads, rows_grad, rows_grad, heads,
+                                       heads, None if state is None else st),
+                   device_mesh=mesh)
+    return fn(xs, bmat, cmat, dt, da, state)
+
+
+def _ssd_chunks(xs, bmat, cmat, dt, da, state, q: int, intra_dt):
+    """The chunked SSD of ``xs`` (B, S, nh, hd) with ``bmat``/``cmat``
+    (B, S, N), ``dt``/``da`` (B, S, nh) f32 and the carried ``state``
+    (B, nh, hd, N) or None, in chunks of ``q``: returns (y (B, S, nh, hd)
+    f32 without the skip term, the final state)."""
+    f32 = torch.float32
+    b, s, nh, hd = xs.shape
+    n = bmat.shape[-1]
+    nc = s // q
+    xs_c = xs.reshape(b, nc, q, nh, hd)
+    b_c = bmat.reshape(b, nc, q, n).to(intra_dt)
+    c_c = cmat.reshape(b, nc, q, n).to(intra_dt)
+    dt_c = dt.reshape(b, nc, q, nh)
+    da_c = da.reshape(b, nc, q, nh)
+    acum = torch.cumsum(da_c, dim=2)                   # (B,nc,q,nh) f32
+
+    # Intra-chunk (quadratic within chunk): L[i,j] = exp(acum_i - acum_j)
+    # i>=j. Mask *before* exp: the upper triangle's positive diffs overflow.
+    diff = acum[:, :, :, None] - acum[:, :, None, :, :]  # (B,nc,q,q,nh)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=xs.device))
+    lmat = torch.exp(torch.where(tri[None, None, ..., None], diff, -1e30))
+    lmat = lmat.to(intra_dt)
+    gmat = torch.einsum("bcin,bcjn->bcij", c_c, b_c)   # scores C_i . B_j
+    y_diag = torch.einsum("bcij,bcijh,bcjh,bcjhp->bcihp", gmat.float(),
+                          lmat.float(), dt_c.to(intra_dt).float(),
+                          xs_c.to(intra_dt).float())
+
+    # Chunk-final states + inter-chunk recurrence.
+    decay_to_end = torch.exp(acum[:, :, -1:, :] - acum)  # (B,nc,q,nh)
+    chunk_state = torch.einsum("bcjn,bcjh,bcjh,bcjhp->bchpn", b_c.float(),
+                               decay_to_end, dt_c, xs_c.float())
+    chunk_decay = torch.exp(acum[:, :, -1, :])         # (B,nc,nh)
+
+    h = torch.zeros(b, nh, hd, n, dtype=f32, device=xs.device) \
+        if state is None else state
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)              # (B,nc,nh,hd,n)
+    y_off = torch.einsum("bcin,bchpn,bcih->bcihp", c_c.float(), h_prevs,
+                         torch.exp(acum))
+    return (y_diag + y_off).reshape(b, s, nh, hd), h
 
 
 def ssm_apply(p, x, cfg, state=None, conv_carry=None):
@@ -428,6 +786,7 @@ def ssm_apply(p, x, cfg, state=None, conv_carry=None):
     xbc, new_conv = _causal_conv(xbc, p.conv_w, conv_carry)
     xbc = silu(xbc)
     xs = xbc[..., :din].reshape(b, s, nh, hd)
+    xs = constrain(xs, "batch", None, "tensor", None)
     bmat = xbc[..., din:din + n]                       # (B,S,N) single group
     cmat = xbc[..., din + n:]                          # (B,S,N)
     dt = softplus(dt.float() + p.dt_bias[None, None])  # (B,S,nh)
@@ -450,47 +809,19 @@ def ssm_apply(p, x, cfg, state=None, conv_carry=None):
     q = min(cfg.ssm_chunk, s)
     if s % q != 0:  # ragged (smoke-test) sizes: single chunk
         q = s
-    nc = s // q
     # ssm_bf16_intra: the intra-chunk tensors in bf16, accumulated in f32.
     intra_dt = torch.bfloat16 if cfg.ssm_bf16_intra else f32
-    xs_c = xs.reshape(b, nc, q, nh, hd)
-    b_c = bmat.reshape(b, nc, q, n).to(intra_dt)
-    c_c = cmat.reshape(b, nc, q, n).to(intra_dt)
-    dt_c = dt.reshape(b, nc, q, nh)
-    da_c = da.reshape(b, nc, q, nh)
-    acum = torch.cumsum(da_c, dim=2)                   # (B,nc,q,nh) f32
-
-    # Intra-chunk (quadratic within chunk): L[i,j] = exp(acum_i - acum_j)
-    # i>=j. Mask *before* exp: the upper triangle's positive diffs overflow.
-    diff = acum[:, :, :, None] - acum[:, :, None, :, :]  # (B,nc,q,q,nh)
-    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
-    lmat = torch.exp(torch.where(tri[None, None, ..., None], diff, -1e30))
-    lmat = lmat.to(intra_dt)
-    gmat = torch.einsum("bcin,bcjn->bcij", c_c, b_c)   # scores C_i . B_j
-    y_diag = torch.einsum("bcij,bcijh,bcjh,bcjhp->bcihp", gmat.float(),
-                          lmat.float(), dt_c.to(intra_dt).float(),
-                          xs_c.to(intra_dt).float())
-
-    # Chunk-final states + inter-chunk recurrence.
-    decay_to_end = torch.exp(acum[:, :, -1:, :] - acum)  # (B,nc,q,nh)
-    chunk_state = torch.einsum("bcjn,bcjh,bcjh,bcjhp->bchpn", b_c.float(),
-                               decay_to_end, dt_c, xs_c.float())
-    chunk_decay = torch.exp(acum[:, :, -1, :])         # (B,nc,nh)
-
-    h = torch.zeros(b, nh, hd, n, dtype=f32, device=x.device) \
-        if state is None else state
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    h_prevs = torch.stack(h_prevs, dim=1)              # (B,nc,nh,hd,n)
-    y_off = torch.einsum("bcin,bchpn,bcih->bcihp", c_c.float(), h_prevs,
-                         torch.exp(acum))
-    y = (y_diag + y_off).reshape(b, s, nh, hd)
+    y, h = _ssd(xs, bmat, cmat, dt, da, state, q=q, intra_dt=intra_dt)
     y = y + p.D[None, None, :, None] * xs.float()
     y = y.reshape(b, s, din).to(x.dtype)
     y = y * silu(z)
+    y = constrain(y, "batch", None, "tensor")
     return y @ p.out_proj.to(x.dtype), (h, new_conv)
+
+
+def ssm_cache_axes():
+    return {"state": ("batch", "tensor", None, None),
+            "conv": ("batch", None, "tensor")}
 
 
 def ssm_cache(cfg, batch: int, dtype, device=None) -> dict:
@@ -540,6 +871,13 @@ class RGLRU(nn.Module):
             self.lam.fill_(8.0)  # Λ parameter
 
 
+def rglru_axes():
+    return {"in_x": ("fsdp", "tensor"), "in_gate": ("fsdp", "tensor"),
+            "conv_w": (None, "tensor"), "w_input_gate": (None, "tensor"),
+            "w_rec_gate": (None, "tensor"), "lam": ("tensor",),
+            "out_proj": ("tensor", "fsdp")}
+
+
 _RG_C = 8.0
 
 
@@ -579,6 +917,7 @@ def rglru_apply(p, x, cfg, state=None, conv_carry=None):
     xb = x @ p.in_x.to(x.dtype)
     gate = x @ p.in_gate.to(x.dtype)
     xb, new_conv = _causal_conv(xb, p.conv_w, conv_carry)
+    xb = constrain(xb, "batch", None, "tensor")
 
     r = sigmoid((xb @ p.w_rec_gate.to(xb.dtype)).float())
     i = sigmoid((xb @ p.w_input_gate.to(xb.dtype)).float())
@@ -596,7 +935,12 @@ def rglru_apply(p, x, cfg, state=None, conv_carry=None):
         _, y = _linear_scan(a, gated)
         new_state = y[:, -1]
     y = y.to(x.dtype) * gelu(gate)
+    y = constrain(y, "batch", None, "tensor")
     return y @ p.out_proj.to(x.dtype), (new_state, new_conv)
+
+
+def rglru_cache_axes():
+    return {"state": ("batch", "tensor"), "conv": ("batch", None, "tensor")}
 
 
 def rglru_cache(cfg, batch: int, dtype, device=None) -> dict:

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import rms_norm, softcap, trunc_normal_
+from repro_torch.sharding import constrain, get_mesh, replicate_plain
 
 BLOCK_KINDS = ("attn", "attn_local", "attn_global", "moe", "moe_local",
                "ssm", "rec")
@@ -34,9 +35,8 @@ BLOCK_KINDS = ("attn", "attn_local", "attn_global", "moe", "moe_local",
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's ``ModelConfig``, field for field, without its
-    dry-run setting ``force_unroll``, which comes with the dry run;
-    ``act_dtype`` is a ``torch.dtype``."""
+    """The reference's ``ModelConfig``, field for field; ``act_dtype`` is
+    a ``torch.dtype``."""
     name: str
     vocab: int
     d_model: int
@@ -84,6 +84,10 @@ class ModelConfig:
     # (``attn_out``, ``ffn_out``).
     remat_policy: str = "nothing"
     norm_upcast: bool = True           # False: bf16 RMSNorm
+    # The reference's dry run unrolls its layer scans with this set, since
+    # XLA counts a loop body once. The port's layers are a Python loop
+    # already, so it changes nothing here; the dry run still sets it.
+    force_unroll: bool = False
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -122,6 +126,104 @@ def superblocks(cfg: ModelConfig):
             out.append((lo, lo + len(pat)))
             lo += len(pat)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Logical axes
+# ---------------------------------------------------------------------------
+
+
+def _block_axes(kind: str, cfg) -> dict:
+    attn_ax = L.attention_axes(cfg)
+    if kind.startswith("attn") or kind.startswith("moe"):
+        out = {"ln1": (None,), "ln2": (None,), "attn": attn_ax}
+        if kind.startswith("moe"):
+            out["moe"] = L.moe_axes(cfg)
+        else:
+            out["mlp"] = L.mlp_axes()
+        return out
+    if kind == "ssm":
+        return {"ln1": (None,), "ssm": L.ssm_axes()}
+    if kind == "rec":
+        return {"ln1": (None,), "rec": L.rglru_axes(),
+                "ln2": (None,), "mlp": L.mlp_axes()}
+    raise ValueError(kind)
+
+
+def _stacked(tree):
+    """Every axes tuple of ``tree`` with a leading None (the repeat axis)."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """The reference's tree of parameter axes: the tree of its
+    ``init_params``, leaves the logical axis tuples (stacked layer groups
+    get a leading None for the repeat axis)."""
+    return {"embed": ("vocab", "fsdp"), "ln_f": (None,),
+            "groups": [_stacked({f"{pi}_{kind}": _block_axes(kind, cfg)
+                                 for pi, kind in enumerate(pat)})
+                       for pat, _ in cfg.layer_groups()]}
+
+
+def _block_cache_axes(kind: str) -> dict:
+    if _is_attn(kind):
+        return L.attention_cache_axes()
+    if kind == "ssm":
+        return L.ssm_cache_axes()
+    return L.rglru_cache_axes()
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """The reference's tree of cache axes (``init_cache``'s tree)."""
+    return {"groups": [_stacked({f"{pi}_{kind}": _block_cache_axes(kind)
+                                 for pi, kind in enumerate(pat)})
+                       for pat, _ in cfg.layer_groups()],
+            "index": ()}
+
+
+def model_param_axes(model) -> dict:
+    """``{port parameter name: logical axes}``, the reference's axes of
+    the leaf that holds it, without the repeat axis."""
+    cfg = model.cfg
+    slots = layer_slots(cfg)
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            out[name] = ("vocab", "fsdp") if name == "embed" else (None,)
+            continue
+        node = _block_axes(slots[int(parts[1])][3], cfg)
+        for part in parts[2:]:
+            node = node[part]
+        out[name] = node
+    return out
+
+
+def model_placements(model) -> dict:
+    """``{port parameter name: DTensor placements}`` of each parameter's
+    logical axes on the installed mesh (``sharding.set_mesh``)."""
+    from repro_torch.sharding import placements
+    axes = model_param_axes(model)
+    return {name: placements(axes[name], p.shape)
+            for name, p in model.named_parameters()}
+
+
+def replace_parameters(model, fn) -> None:
+    """Replace each parameter of ``model``, in place, by
+    ``nn.Parameter(fn(name, parameter))`` (the mesh's DTensors)."""
+    for name, p in list(model.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        module._parameters[attr] = nn.Parameter(fn(name, p),
+                                                requires_grad=p.requires_grad)
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical axes of each layer's cache tensors, in layer order
+    (``Cache.layers``)."""
+    return [_block_cache_axes(kind) for *_, kind in layer_slots(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +341,9 @@ class Block(nn.Module):
         of an attention block for a remat policy."""
         cfg, kind = self.cfg, self.kind
         up = cfg.norm_upcast
+        # The saved inter-block residual is D-sharded ("resid_embed");
+        # "blk_in_embed" sets the sharding inside the block.
+        x = constrain(x, "batch", None, "blk_in_embed")
         if _is_attn(kind):
             h = rms_norm(x, self.ln1, upcast=up)
             attn_out = L.attention_apply(self.attn, h, cfg,
@@ -248,7 +353,8 @@ class Block(nn.Module):
             h = rms_norm(x, self.ln2, upcast=up)
             ffn = L.moe_apply(self.moe, h, cfg) if kind.startswith("moe") \
                 else L.mlp_apply(self.mlp, h, cfg)
-            return x + (ffn if tag is None else tag(ffn, "ffn_out"))
+            x = x + (ffn if tag is None else tag(ffn, "ffn_out"))
+            return constrain(x, "batch", "resid_seq", "resid_embed")
         state = None if cache is None else cache["state"]
         conv = None if cache is None else cache["conv"]
         h = rms_norm(x, self.ln1, upcast=up)
@@ -262,7 +368,7 @@ class Block(nn.Module):
         if cache is not None:
             cache["state"].copy_(new_state)
             cache["conv"].copy_(new_conv)
-        return x
+        return constrain(x, "batch", "resid_seq", "resid_embed")
 
 
 class Model(nn.Module):
@@ -316,7 +422,7 @@ class Model(nn.Module):
             logits = softcap(logits, cfg.logit_softcap)
         if cache is not None:
             cache.index += x.shape[1]
-        return logits
+        return constrain(logits, "batch", None, "vocab")
 
 
 def init_params(cfg: ModelConfig, generator=None, device=None,
@@ -343,9 +449,38 @@ def embed_tokens(model: Model, tokens_or_embeds):
     dtype; frontend embeddings are cast to it."""
     cfg = model.cfg
     if cfg.embed_inputs:
-        return tokens_or_embeds.to(cfg.act_dtype)
-    x = model.embed.to(cfg.act_dtype)[tokens_or_embeds]
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
+        x = tokens_or_embeds.to(cfg.act_dtype)
+    else:
+        x = _lookup(model.embed.to(cfg.act_dtype), tokens_or_embeds)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
+    return constrain(x, "batch", "resid_seq", "resid_embed")
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``. On DTensors each rank indexes the whole table
+    (gathered; its gradient reduce-scattered back) with its own tokens
+    (``local_map``): DTensor's strategy for the index's backward
+    (``index_put``) fails on some PyTorch releases, and this runs the
+    plain op on one rank bit for bit."""
+    if get_mesh() is None or not hasattr(table, "placements"):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    # Each rank's table gradient holds its own tokens' rows: a partial sum
+    # over the mesh dims that split the tokens.
+    grad = [Partial() if pl.is_shard() else Replicate()
+            for pl in tokens.placements]
+    return local_map(_index, out_placements=list(tokens.placements),
+                     in_placements=([Replicate()] * mesh.ndim,
+                                    list(tokens.placements)),
+                     in_grad_placements=(grad, list(tokens.placements)),
+                     device_mesh=mesh)(whole, tokens)
+
+
+def _index(table, tokens):
+    return table[tokens]
 
 
 def forward(model: Model, tokens_or_embeds):
@@ -353,16 +488,79 @@ def forward(model: Model, tokens_or_embeds):
     return model(tokens_or_embeds)
 
 
+class _ShardedNLL(torch.autograd.Function):
+    """``logsumexp(x) - x[label]`` over the last dim of ``x`` when each
+    rank of ``group`` holds the vocab slice ``[lo, lo + V_local)``: the max
+    and the sum of exponentials are all-reduced, the gold logit summed
+    from the rank that holds it, so the logits are never gathered. The
+    ops are ``torch.logsumexp``'s and its backward's (``log(sum(exp(x -
+    max))) + max``; ``g * exp(x - lse)``), so on one rank it is the plain
+    ``logsumexp - gather`` bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, labels, group, lo):
+        from torch.distributed import _functional_collectives as funcol
+        m = funcol.all_reduce(torch.amax(x, -1, keepdim=True), "max", group)
+        m = funcol.wait_tensor(m)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = funcol.wait_tensor(funcol.all_reduce(
+            torch.sum(torch.exp(x - m), -1), "sum", group))
+        lse = torch.log(s) + m[..., 0]
+        local = labels - lo
+        inside = (local >= 0) & (local < x.shape[-1])
+        local = local.clamp(0, x.shape[-1] - 1)
+        gold = torch.gather(x, -1, local[..., None])[..., 0]
+        gold = funcol.wait_tensor(funcol.all_reduce(
+            torch.where(inside, gold, 0.0), "sum", group))
+        ctx.save_for_backward(x, lse, local, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, local, inside = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, local[..., None],
+                          torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _nll(logits, labels):
+    """Per-token ``logsumexp - gold`` of f32 logits. Vocab-sharded
+    DTensor logits stay sharded (``_ShardedNLL`` on each rank's slice,
+    ``local_map``), as the reference's sharded logsumexp does."""
+    mesh = get_mesh()
+    vocab_dims = [] if mesh is None or not hasattr(logits, "placements") \
+        else [i for i, pl in enumerate(logits.placements)
+              if pl.is_shard(logits.ndim - 1)]
+    if not vocab_dims:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse - gold
+    from torch.distributed.tensor.experimental import local_map
+    (dim,) = vocab_dims
+    lo = mesh.get_local_rank(dim) * (logits.shape[-1] // mesh.size(dim))
+    fn = local_map(functools.partial(_nll_local, group=mesh.get_group(dim),
+                                     lo=lo),
+                   out_placements=list(labels.placements),
+                   in_placements=(list(logits.placements),
+                                  list(labels.placements)),
+                   device_mesh=mesh)
+    return fn(logits, labels)
+
+
+def _nll_local(x, labels, group, lo):
+    return _ShardedNLL.apply(x, labels, group, lo)
+
+
 def loss_fn(model: Model, batch: dict):
-    """Mean next-token cross-entropy (f32 logsumexp)."""
+    """Mean next-token cross-entropy (f32 logsumexp; over vocab-sharded
+    logits under a mesh)."""
     cfg = model.cfg
     inputs = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
     logits = forward(model, inputs).float()
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     mask = batch.get("mask")
-    nll = lse - gold
+    nll = _nll(logits, labels)
     if mask is not None:
         nll = nll * mask
         denom = torch.clamp(mask.sum(), min=1.0)
@@ -405,7 +603,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def prefill(model: Model, tokens_or_embeds, cache: Cache):
     """Process a prompt batch, filling the cache. Returns (logits, cache)."""
-    return model(tokens_or_embeds, cache), cache
+    with replicate_plain():
+        return model(tokens_or_embeds, cache), cache
 
 
 @torch.no_grad()
@@ -413,4 +612,5 @@ def decode_step(model: Model, token_or_embed, cache: Cache):
     """One token per sequence: (B,) ids or (B,1,D) embeds."""
     if not model.cfg.embed_inputs and token_or_embed.ndim == 1:
         token_or_embed = token_or_embed[:, None]
-    return model(token_or_embed, cache), cache
+    with replicate_plain():
+        return model(token_or_embed, cache), cache

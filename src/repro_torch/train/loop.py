@@ -26,10 +26,12 @@ import torch
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.model import ModelConfig
+from repro_torch.models.model import ModelConfig, model_placements
+from repro_torch.sharding import get_mesh, logical_to_spec, placements
 from repro_torch.train.grad_compress import make_compressing_hook
 from repro_torch.train.optimizer import Hyper
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.step import (init_train_state, make_train_step,
+                                    shard_state)
 
 # cuBLAS's deterministic workspace setting (NVIDIA's cuBLAS documentation,
 # "Results reproducibility"), which PyTorch's deterministic mode requires.
@@ -71,6 +73,27 @@ def deterministic_algorithms():
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
+def _data_rank(mesh, batch: int, seq: int) -> tuple:
+    """(ranks, this rank) of the data-parallel split of the batch under
+    ``mesh``: the mesh dims that shard the ``batch`` axis (``(1, 0)``
+    where none does, as when the batch does not divide)."""
+    n, rank = 1, 0
+    for axis in logical_to_spec(("batch", None), (batch, seq))[0]:
+        i = mesh.mesh_dim_names.index(axis)
+        n, rank = n * mesh.size(i), rank * mesh.size(i) + \
+            mesh.get_local_rank(i)
+    return n, rank
+
+
+def shard_batch(local: dict, mesh, batch: int, seq: int) -> dict:
+    """This rank's rows as DTensors of the global ``(batch, seq)`` batch."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(("batch", None), (batch, seq))
+    return {k: DTensor.from_local(t, mesh, pl, shape=torch.Size((batch, seq)),
+                                  stride=(seq, 1))
+            for k, t in local.items()}
+
+
 def train(cfg: ModelConfig, hyper: Hyper, *, steps: int, batch: int, seq: int,
           ckpt_dir: str, ckpt_every: int = 50, seed: int = 0,
           fail_at_step: int | None = None, compressor=None,
@@ -86,9 +109,21 @@ def train(cfg: ModelConfig, hyper: Hyper, *, steps: int, batch: int, seq: int,
     run resumed from a checkpoint reproduces the uninterrupted run bit for
     bit on one device; the process's settings are restored on return.
     The model trains from f32 masters (``init_train_state``), computing in
-    ``cfg.dtype``."""
+    ``cfg.dtype``.
+
+    Under a mesh (``sharding.set_mesh``; every rank calls ``train``) the
+    state is sharded by its logical axes (``shard_state``), each rank
+    reads its data-parallel slice of the batch (``TokenPipeline(n_ranks,
+    rank)``) and checkpoints are saved whole and restored onto the mesh.
+    Gradient compression and microbatches are not supported there."""
     dev = resolve_device(device)
-    pipeline = TokenPipeline(cfg.vocab, batch, seq, seed=seed)
+    mesh = get_mesh()
+    if mesh is not None and (compressor is not None or microbatches != 1):
+        raise NotImplementedError("gradient compression and microbatches "
+                                  "under a mesh")
+    n_ranks, rank = (1, 0) if mesh is None else _data_rank(mesh, batch, seq)
+    pipeline = TokenPipeline(cfg.vocab, batch, seq, seed=seed,
+                             n_ranks=n_ranks, rank=rank)
     mgr = CheckpointManager(ckpt_dir)
 
     err_holder = {"err": None}
@@ -98,9 +133,13 @@ def train(cfg: ModelConfig, hyper: Hyper, *, steps: int, batch: int, seq: int,
                               compressor=hook)
 
     state = init_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    if mesh is not None:
+        state = shard_state(state)
     if compressor is not None:
         err_holder["err"] = compressor.init(state.params)
-    start, restored = mgr.restore(state, device=dev)
+    start, restored = mgr.restore(
+        state, device=dev,
+        placements=None if mesh is None else model_placements(state.params))
     if restored is not None:
         state = restored
         if verbose:
@@ -124,6 +163,9 @@ def train(cfg: ModelConfig, hyper: Hyper, *, steps: int, batch: int, seq: int,
                 t0 = time.perf_counter()
                 batch_arrays = {k: torch.from_numpy(v).to(dev) for k, v in
                                 pipeline.host_slice(step).items()}
+                if mesh is not None:
+                    batch_arrays = shard_batch(batch_arrays, mesh, batch,
+                                                 seq)
                 state, metrics = step_fn(state, batch_arrays)
                 loss = float(metrics["loss"])
                 grad_norm = float(metrics["grad_norm"])

@@ -15,7 +15,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.model import Model, ModelConfig, init_params, loss_fn
+from repro_torch.models.model import (Model, ModelConfig, init_params,
+                                      loss_fn, model_placements,
+                                      replace_parameters)
+from repro_torch.sharding import get_mesh, replicate_plain
 from repro_torch.train.optimizer import (Hyper, adamw_init, adamw_update,
                                          decayed)
 
@@ -32,6 +35,25 @@ def init_train_state(cfg: ModelConfig, generator=None,
     masters drawn from ``generator`` (``init_params``), zero moments."""
     model = init_params(cfg, generator, device, param_dtype=torch.float32)
     return TrainState(params=model, opt=adamw_init(model), step=0)
+
+
+def shard_state(state: TrainState) -> TrainState:
+    """``state``, the same on every rank (drawn from one seed), with its
+    parameters and moments made DTensors of their logical axes' placements
+    on the installed mesh (``model_placements``); each rank keeps its own
+    shards, with no communication. The model is changed in place."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = get_mesh()
+    model = state.params
+    placements = model_placements(model)
+
+    def shard(name, t):
+        return distribute_tensor(t.detach(), mesh, placements[name],
+                                 src_data_rank=None)
+    replace_parameters(model, shard)
+    opt = {k: {n: shard(n, t) for n, t in moments.items()}
+           for k, moments in state.opt.items()}
+    return TrainState(params=model, opt=opt, step=state.step)
 
 
 @contextlib.contextmanager
@@ -60,12 +82,22 @@ def loss_and_grads(model: Model, batch: dict, cast_bf16: bool = False):
     """(loss, ``{name: f32 gradient}``) of ``loss_fn`` on ``batch``. With
     ``cast_bf16`` the loss sees the f32 masters of every reference leaf of
     rank 2 or more cast to bf16 once, as the reference casts the
-    ``p.ndim >= 2`` leaves of its stacked tree before the layer stack."""
+    ``p.ndim >= 2`` leaves of its stacked tree before the layer stack.
+
+    Under a mesh (``sharding.set_mesh``; parameters and batch DTensors)
+    every rank must call it: each gradient is redistributed to its
+    parameter's placements (autograd leaves it ``Partial`` where the
+    batch is sharded) and the loss is returned whole."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
-    with _bf16_weights(model) if cast_bf16 else contextlib.nullcontext():
+    with replicate_plain(), \
+            _bf16_weights(model) if cast_bf16 else contextlib.nullcontext():
         loss = loss_fn(model, batch)
         grads = torch.autograd.grad(loss, params)
+    if get_mesh() is not None:
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 for p, g in zip(params, grads)]
+        loss = loss.full_tensor()
     return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
 
 

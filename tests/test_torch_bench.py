@@ -45,20 +45,81 @@ def test_kernels_bench_needs_cuda_by_default(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels.json").exists()
 
 
-def test_bench_run_refuses_unported_suites(tmp_path, capsys):
-    """Only ``roofline`` is not ported; it names the ROADMAP item it waits
-    for, and a failed suite does not stop the others."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        bench_run.suite("roofline")
+def test_bench_run_ports_every_suite_and_runs_roofline(tmp_path, capsys,
+                                                      monkeypatch):
+    """Every suite is ported; ``--only roofline`` reads the dry run's
+    artifacts (one written here) and reports each cell; an unknown suite
+    raises, and a failed suite does not stop the others."""
+    from repro_torch.bench import roofline
+    assert set(bench_run.PORTED) == set(bench_run.SUITES)
     with pytest.raises(ValueError, match="unknown suite"):
         bench_run.suite("nope")
-    assert set(bench_run.PORTED) == set(bench_run.SUITES) - {"roofline"}
-    rc = bench_run.main(["--quick", "--only", "kernels,roofline",
-                         "--device", "cpu", "--out", str(tmp_path)])
+    monkeypatch.setattr(roofline, "RESULTS_DIR", str(tmp_path))
+    _write_cells(tmp_path)
+    out = tmp_path / "out"
+    rc = bench_run.main(["--only", "roofline,kernels", "--quick", "--device",
+                         "cpu", "--out", str(out)])
     captured = capsys.readouterr()
-    assert rc == 1 and "kernels/query_fused" in captured.out
-    assert "FAILED suites: ['roofline']" in captured.err
-    assert (tmp_path / "kernels.json").exists()
+    assert rc == 0, captured.err
+    assert "roofline/qwen3-0.6b/train_4k,,dom=" in captured.out
+    assert "roofline/qwen3-0.6b/long_500k,,skipped:" in captured.out
+    saved = json.loads((out / "roofline.json").read_text())
+    assert saved["peaks_of"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert saved["peak_flops"] == 989e12 and saved["hbm_bw"] == 3.35e12
+    assert saved["qwen3-0.6b/prefill_32k"]["skipped"] == "missing"
+    assert (out / "kernels.json").exists()
+
+
+def _write_cells(root):
+    """Synthetic dry-run artifacts: qwen3's train_4k (its full-depth cell
+    and a cost file), decode_32k and a skipped long_500k; mistral's
+    train_4k with its full-depth cell only."""
+    def cell(flops, nbytes, wire, n_dev=256, **extra):
+        return dict({"ok": True, "n_devices": n_dev,
+                     "cost_analysis": {"flops": flops,
+                                       "bytes accessed": nbytes},
+                     "collectives": {"all-gather": {
+                         "count": 3, "result_bytes": wire,
+                         "wire_bytes_per_device": wire * 15 / 16}},
+                     "memory_analysis": {"temp_size_in_bytes": 7 * nbytes,
+                                         "argument_size_in_bytes": nbytes}},
+                    **extra)
+    cells = {
+        "qwen3-0.6b__train_4k__single_pod": cell(2.9e14, 4.7e13, 5.6e11),
+        "qwen3-0.6b__train_4k__single_pod_cost": cell(3.1e14, 4.0e13,
+                                                      1e11),
+        "qwen3-0.6b__decode_32k__single_pod": cell(5.2e9, 3.1e10, 2e9),
+        "qwen3-0.6b__long_500k__single_pod": {"skipped": True,
+                                              "reason": "full attention"},
+        "mistral-nemo-12b__train_4k__single_pod": cell(9e15, 2e13, 9e12,
+                                                       n_dev=512),
+    }
+    for name, rec in cells.items():
+        (root / f"{name}.json").write_text(json.dumps(rec))
+    return [name.split("__")[:2] for name in cells
+            if not name.endswith("_cost")]
+
+
+def test_roofline_analyze_matches_reference(tmp_path, monkeypatch):
+    """The port's ``analyze`` is the reference's on the same artifacts
+    and peaks: the reference module's peaks and results directory are
+    patched to the port's; only the name of the cost source differs (the
+    port's full-depth count is exact, not a scan body counted once)."""
+    from benchmarks import roofline as ref
+    from repro_torch.bench import roofline
+    monkeypatch.setattr(roofline, "RESULTS_DIR", str(tmp_path))
+    for name in ("PEAK_FLOPS", "HBM_BW", "LINK_BW"):
+        monkeypatch.setattr(ref, name, getattr(roofline, name))
+    monkeypatch.setattr(ref, "RESULTS_DIR", str(tmp_path))
+    for arch, shape in _write_cells(tmp_path) + [["gemma2-2b", "train_4k"]]:
+        got, want = roofline.analyze(arch, shape), ref.analyze(arch, shape)
+        sources = (got.pop("cost_source", None), want.pop("cost_source",
+                                                         None))
+        assert got == want, (arch, shape)
+        assert sources in ((None, None), ("full depth", "scan(body-once)"),
+                           ("u1u2-extrapolated", "u1u2-extrapolated"))
+    assert roofline.markdown_table(["train_4k"], ["qwen3_0_6b"]) \
+        .count("| qwen3-0.6b | train_4k |") == 1
 
 
 # Tiny ``QUICK`` tables (and fig9's grid) for the CPU runs of the suites.
@@ -185,10 +246,12 @@ def test_serving_suite_modes(monkeypatch, tmp_path):
     assert names[-1] == "serving/fault_hooks_disabled_overhead"
 
 
-@pytest.mark.parametrize("name", sorted(set(bench_run.PORTED) - {"kernels"}))
+@pytest.mark.parametrize("name", sorted(set(bench_run.PORTED)
+                                         - {"kernels", "roofline"}))
 def test_suites_need_cuda_by_default(name, monkeypatch, tmp_path):
-    """No card: every ported suite raises at once instead of falling back
-    to the CPU, and writes no JSON."""
+    """No card: every suite that measures raises at once instead of falling
+    back to the CPU, and writes no JSON (``roofline`` reads files and
+    measures nothing)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_run.suite(name).run([], quick=True, out_dir=tmp_path)

@@ -286,10 +286,10 @@ def test_train_cli_smoke_on_cpu(tmp_path):
 
 
 def test_entry_points_refuse_mesh_and_missing_card(tmp_path):
-    """``--mesh single`` raises naming ROADMAP item 6c; without a card the
-    default device raises in the CLI, ``train``, ``init_train_state`` and
-    ``CheckpointManager.restore``."""
-    with pytest.raises(NotImplementedError, match="6c"):
+    """``--mesh single`` without its 256 ranks raises, naming them; without
+    a card the default device raises in the CLI, ``train``,
+    ``init_train_state`` and ``CheckpointManager.restore``."""
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         train_cli.main(["--smoke", "--steps", "1", "--mesh", "single",
                         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     if torch.cuda.is_available():
