@@ -133,13 +133,25 @@ Phases, each printing one JSON line:
                ``dryrun.analytic_train_flops``; (b) one NCCL rank with a
                (data=1, model=1) mesh, the state DTensors, 3 steps against
                3 of the plain path from the same seed, parameters
-               ``torch.equal``; (c) qwen3-0.6b's ``train_4k``,
-               ``prefill_32k`` and ``decode_32k`` cells on the 256-rank
-               mesh and ``decode_32k`` on the 512-rank one, one child each,
-               then ``repro_torch.bench.run --only roofline``; per cell its
+               ``torch.equal``, then the same with 4 microbatches and with
+               a ``GDQuantizer(8)`` gradient codec on both sides; (c)
+               qwen3-0.6b's ``train_4k``, ``prefill_32k`` and
+               ``decode_32k`` cells on the 256-rank mesh and
+               ``decode_32k`` on the 512-rank one, one child each, then
+               ``repro_torch.bench.run --only roofline``; per cell its
                per-device FLOPs, bytes, wire bytes by kind, peak bytes,
-               trace seconds and dominant roofline term. (a), (b) and (c)
-               run side by side.
+               trace seconds and dominant roofline term, and for
+               ``train_4k`` and ``prefill_32k`` beside the counts they
+               read while the attention replicated the query heads over
+               ``model`` (``REPLICATED_HEADS``): ``train_4k`` at most half
+               those FLOPs, both below those peaks. (a), (b) and (c) run
+               side by side;
+ 13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
+               chaos}_smoke.py`` on the card, one child each (servers in
+               ``"cuda"`` mode), each passing its own gates and launching
+               its kernels (K1 from the servers' waves, K2 from single
+               AND queries, K3/K4 from the GD lane's builds), with its
+               wall time; then ``examples/torch_quickstart.py``.
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 the last line. Without a CUDA device, or outside a checkout of the
@@ -2212,10 +2224,20 @@ SHARDING_HYPER = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 # (dryrun.analytic_train_flops), its peak against the train phase's
 # measured max_memory_allocated.
 SHARDING_FLOPS_RTOL, SHARDING_PEAK_RTOL = 0.01, 0.15
+# (b): the variants run on the (1, 1) mesh and on the plain path besides
+# the plain step: 4 microbatches (batch 8 -> 2 rows each), GDQuantizer(8).
+SHARDING_VARIANTS = {"microbatches_4": {"microbatches": 4},
+                     "gd8": {"gd_bits": 8}}
 # (c): qwen3-0.6b's cells of the reference's shapes (long_500k is skipped
 # by shape_supported for a full-attention architecture), one process each.
 SHARDING_CELLS = (("train_4k", "--single-pod"), ("prefill_32k", "--single-pod"),
                   ("decode_32k", "--single-pod"), ("decode_32k", "--multi-pod"))
+# Per-device FLOPs and peak bytes of the two cells while the attention
+# replicated the query heads over the 16-way model axis (16 heads in 8 kv
+# groups); with the heads kept sharded, train_4k must read at most half
+# the FLOPs and both must stay below their peaks.
+REPLICATED_HEADS = {"train_4k/single": (3.071e14, 46_101_102_346),
+                    "prefill_32k/single": (4.975e14, 19_116_592_128)}
 
 
 def _child(fn: str, *args) -> subprocess.Popen:
@@ -2252,73 +2274,103 @@ def sharding_predict(path: str) -> None:
     Path(path).write_text(json.dumps(res))
 
 
+def _sharding_run(cfg, mesh, step_kw: dict) -> dict:
+    """SHARDING_STEPS steps of qwen3-0.6b from seed 0 under deterministic
+    algorithms, as the loop runs them: on ``mesh`` (installed, the state
+    sharded, each batch ``shard_batch``ed) or, with ``mesh`` None, the
+    plain path; ``step_kw`` may hold ``microbatches`` and ``gd_bits`` (a
+    ``GDQuantizer``, whose error feedback is made after the state is
+    sharded). Returns the losses,
+    step ms, peak memory, parameter types and the parameters on the
+    host."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.dryrun import arch_rules
+    from repro_torch.sharding import set_mesh
+    from repro_torch.train.grad_compress import (GDQuantizer,
+                                                make_compressing_hook)
+    from repro_torch.train.loop import deterministic_algorithms, shard_batch
+    from repro_torch.train.optimizer import Hyper
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_state)
+    set_mesh(mesh, None if mesh is None else arch_rules(cfg, 1))
+    pipe = TokenPipeline(cfg.vocab, SHARDING_BATCH, SHARDING_SEQ, seed=0)
+    state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0))
+    if mesh is not None:
+        state = shard_state(state)
+    hook = None
+    if "gd_bits" in step_kw:
+        codec = GDQuantizer(step_kw["gd_bits"])
+        hook = make_compressing_hook(codec, {"err": codec.init(state.params)})
+    step = make_train_step(cfg, Hyper(**SHARDING_HYPER), compressor=hook,
+                           microbatches=step_kw.get("microbatches", 1))
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_algorithms():
+        for i in range(SHARDING_STEPS):
+            t = time.perf_counter()
+            b = {k: torch.from_numpy(v).cuda()
+                 for k, v in pipe.host_slice(i).items()}
+            if mesh is not None:
+                b = shard_batch(b, mesh, SHARDING_BATCH, SHARDING_SEQ)
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+    out = {"losses": losses, "step_ms": times,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "param_types": sorted({type(p).__name__ for p in
+                                  state.params.parameters()}),
+           "params": {n: (p.full_tensor() if hasattr(p, "full_tensor")
+                          else p).detach().cpu()
+                      for n, p in state.params.named_parameters()}}
+    set_mesh(None)
+    del state, step, hook
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharding_compare(mesh_run: dict, plain_run: dict) -> dict:
+    """Whether two runs' parameters are equal (``torch.equal``), with the
+    largest differences where not; pops both runs' parameters."""
+    import torch
+    a, b = mesh_run.pop("params"), plain_run.pop("params")
+    diff = {n: float((a[n].double() - b[n].double()).abs().max())
+            for n in b if not torch.equal(a[n], b[n])}
+    return {"equal": not diff, "unequal_tensors": len(diff),
+            "worst": sorted(diff.items(), key=lambda kv: -kv[1])[:4],
+            "losses_equal": mesh_run["losses"] == plain_run["losses"]}
+
+
 def sharding_mesh_step(path: str, port: int) -> None:
     """(b), in a child: one NCCL rank, a (data=1, model=1) mesh installed,
     the state sharded (every parameter and moment a DTensor, every
     ``constrain`` a redistribute on the card), SHARDING_STEPS steps; then
     the same steps of the plain path from the same seed. Both under
-    deterministic algorithms, as the loop runs them. The parameters are
-    compared on the host; the result goes to ``path``."""
+    deterministic algorithms, as the loop runs them. Then the same pair
+    for each of SHARDING_VARIANTS (microbatches; a gradient codec). The
+    parameters are compared on the host; the result goes to ``path``."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.launch.dryrun import arch_rules
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.sharding import set_mesh
-    from repro_torch.train.loop import deterministic_algorithms, shard_batch
-    from repro_torch.train.optimizer import Hyper
-    from repro_torch.train.step import (init_train_state, make_train_step,
-                                        shard_state)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=0, world_size=1)
     torch.cuda.set_device(0)
     cfg = get_config(LM_ARCH)
-    hyper = Hyper(**SHARDING_HYPER)
-    pipe = TokenPipeline(cfg.vocab, SHARDING_BATCH, SHARDING_SEQ, seed=0)
-    out = {}
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
-        for label in ("mesh", "plain"):
-            set_mesh(mesh if label == "mesh" else None,
-                     arch_rules(cfg, 1) if label == "mesh" else None)
-            state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0))
-            if label == "mesh":
-                state = shard_state(state)
-            step = make_train_step(cfg, hyper)
-            losses, times = [], []
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            with deterministic_algorithms():
-                for i in range(SHARDING_STEPS):
-                    t = time.perf_counter()
-                    b = {k: torch.from_numpy(v).cuda()
-                         for k, v in pipe.host_slice(i).items()}
-                    if label == "mesh":
-                        b = shard_batch(b, mesh, SHARDING_BATCH, SHARDING_SEQ)
-                    state, metrics = step(state, b)
-                    losses.append(float(metrics["loss"]))
-                    times.append((time.perf_counter() - t) * 1e3)
-            kinds = sorted({type(p).__name__ for p in
-                            state.params.parameters()})
-            params = {n: (p.full_tensor() if hasattr(p, "full_tensor")
-                          else p).detach().cpu()
-                      for n, p in state.params.named_parameters()}
-            out[label] = {"losses": losses, "step_ms": times,
-                          "max_memory_allocated":
-                              torch.cuda.max_memory_allocated(),
-                          "param_types": kinds, "params": params}
-            del state, step
-            torch.cuda.empty_cache()
-        set_mesh(None)
-        a, b = out["mesh"].pop("params"), out["plain"].pop("params")
-        diff = {n: float((a[n].double() - b[n].double()).abs().max())
-                for n in b if not torch.equal(a[n], b[n])}
-        out.update(equal=not diff, unequal_tensors=len(diff),
-                   worst=sorted(diff.items(), key=lambda kv: -kv[1])[:4],
-                   losses_equal=out["mesh"]["losses"] == out["plain"]["losses"])
+        out = {"mesh": _sharding_run(cfg, mesh, {}),
+               "plain": _sharding_run(cfg, None, {})}
+        out.update(_sharding_compare(out["mesh"], out["plain"]))
+        out["variants"] = {}
+        for name, step_kw in SHARDING_VARIANTS.items():
+            runs = {label: _sharding_run(cfg, m, step_kw)
+                    for label, m in (("mesh", mesh), ("plain", None))}
+            out["variants"][name] = dict(runs, **_sharding_compare(
+                runs["mesh"], runs["plain"]))
     finally:
         dist.destroy_process_group()
     Path(path).write_text(json.dumps(out))
@@ -2408,6 +2460,13 @@ def phase_sharding(card: str, train_out: dict) -> dict:
                    f"{step['worst']}")
     if step["mesh"]["param_types"] != ["DTensor"]:
         bad.append(f"mesh parameters are {step['mesh']['param_types']}")
+    for name, var in step["variants"].items():
+        if not var["equal"]:
+            bad.append(f"(1, 1)-mesh step with {name} differs from the "
+                       f"plain one: {var['worst']}")
+        if var["mesh"]["param_types"] != ["DTensor"]:
+            bad.append(f"{name}: mesh parameters are "
+                       f"{var['mesh']['param_types']}")
     if bench_run.main(["--only", "roofline", "--out",
                        str(OUT_DIR / "bench")]) != 0:
         bad.append("the roofline suite failed")
@@ -2434,6 +2493,19 @@ def phase_sharding(card: str, train_out: dict) -> dict:
             "peak_bytes": rec["memory_analysis"]["peak_bytes"],
             "trace_s": rec["trace_s"], "terms_s": terms,
             "dominant": max(terms, key=terms.get)})
+        if label in REPLICATED_HEADS:
+            flops, peak = (rec["cost_analysis"]["flops"],
+                           rec["memory_analysis"]["peak_bytes"])
+            was_flops, was_peak = REPLICATED_HEADS[label]
+            cells[-1].update(replicated_heads_flops=was_flops,
+                             replicated_heads_peak_bytes=was_peak,
+                             flops_vs_replicated=flops / was_flops,
+                             peak_vs_replicated=peak / was_peak)
+            most = was_flops / 2 if shape == "train_4k" else was_flops
+            if not (flops <= most and peak < was_peak):
+                bad.append(f"cell {label}: {flops} FLOPs, {peak} B peak "
+                           f"against {was_flops}, {was_peak} with the "
+                           f"heads replicated")
     out = {"phase": "sharding", "card": card, "arch": LM_ARCH,
            "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
            "mesh_step": step, "cells": cells,
@@ -2444,6 +2516,74 @@ def phase_sharding(card: str, train_out: dict) -> dict:
     if bad:
         raise AssertionError(f"sharding phase failed: {bad}")
     return out
+
+
+# -------------------------------------------------------------- phase 13
+
+# The port's smoke lanes, each in a child on the card with its time limit,
+# and the kernels each must launch there: the servers' waves K1, their
+# tables' single AND queries K2 (``FastPath``), the GD lane's builds K3/K4.
+LANES = {
+    "torch_trace_smoke": ("batched_weightings",),
+    "torch_plan_smoke": ("batched_weightings", "fused_weightings"),
+    "torch_gd_smoke": ("batched_hist2d", "batched_subbin_hist"),
+    "torch_chaos_smoke": ("batched_weightings", "fused_weightings"),
+}
+LANE_TIMEOUT_S = 60
+# The example run on the card after the lanes.
+LANE_EXAMPLE = "examples/torch_quickstart.py"
+
+
+def _lane(path: str, timeout: float) -> dict:
+    """``path`` (a script of the repository) in a child on the card, killed
+    after ``timeout`` s: its exit code, wall time, output lines and, where
+    its last line is ``{"launches": ...}``, the kernel launches it made."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cwd = OUT_DIR / "lanes"
+    cwd.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / path)], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"lane": path, "rc": None, "wall_s": timeout,
+                "error": f"did not finish in {timeout} s"}
+    lines = proc.stdout.strip().splitlines()
+    launches = {}
+    if lines and lines[-1].startswith('{"launches"'):
+        launches = json.loads(lines.pop())["launches"]
+    out = {"lane": path, "rc": proc.returncode,
+           "wall_s": time.perf_counter() - t, "checks": lines,
+           "launches": launches}
+    if proc.returncode != 0:
+        out["stderr"] = proc.stderr[-3000:]
+    return out
+
+
+def phase_lanes() -> list:
+    """The four ``scripts/torch_*_smoke.py`` lanes on the card (servers in
+    ``"cuda"`` mode), one after another (the trace lane's overhead gate and
+    the chaos lane's deadline are timings), then ``LANE_EXAMPLE``: each must
+    exit 0, its own gates passed, and launch its kernels. One JSON line per
+    lane."""
+    t_phase = time.perf_counter()
+    bad, outs = [], []
+    runs = [(f"scripts/{name}.py", kinds) for name, kinds in LANES.items()]
+    for path, kinds in runs + [(LANE_EXAMPLE, ())]:
+        out = _lane(path, LANE_TIMEOUT_S)
+        emit(dict(out, phase="lanes"))
+        outs.append(out)
+        if out["rc"] != 0:
+            bad.append(f"{path}: exit {out['rc']} {out.get('error', '')}")
+        missing = [k for k in kinds if not out.get("launches", {}).get(k)]
+        if missing:
+            bad.append(f"{path}: launched no {missing}")
+    emit({"phase": "lanes", "seconds": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"lanes phase failed: {bad}")
+    return outs
 
 
 # --------------------------------------------------------------------- main
@@ -2481,6 +2621,7 @@ def main(argv=None) -> int:
         train_out, train_cases = phase_train(info["nvidia_smi"])
         cases = cases + train_cases
         phase_sharding(info["nvidia_smi"], train_out)
+        lanes = phase_lanes()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -2490,7 +2631,7 @@ def main(argv=None) -> int:
     # largest over every case of the kernel. K1/K2's launches are those of
     # the main phase and the serve phase; K3/K4's those of the main phase
     # and the train phase's telemetry build; K5's those of the sharded
-    # ranks and the bench.
+    # ranks and the bench; each adds the lanes' own (their processes').
     cases = cases + main_out["kernel_cases"]
     report = {c["name"]: c for c in cases if c.get("shape") == "main"}
     for c in cases:
@@ -2503,6 +2644,9 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in train_out["telemetry"]["launches"].items():
         launches[name] += n
+    for lane in lanes:
+        for name, n in lane.get("launches", {}).items():
+            launches[name] += n
     kernels = []
     for name in TPU_KERNELS:
         c = report[name]

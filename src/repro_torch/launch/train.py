@@ -15,7 +15,9 @@ computes in its dtype from f32 master weights. ``--mesh single|multi``
 installs the production mesh (``launch.mesh``; 256 or 512 ranks, each
 under ``torchrun``, NCCL) with the dry run's rules for the architecture
 and trains sharded; with any other world size it raises, naming the one
-it needs.
+it needs. ``--microbatches`` and ``--grad-compress`` work with ``--mesh``
+as without it: each microbatch is sharded over the data ranks, and the
+codec's error feedback over the parameters' placements.
 """
 from __future__ import annotations
 

@@ -125,33 +125,51 @@ def _chunked_attention(q, k, v, *, q_positions, kv_positions, window, cap,
 
 
 def _attention(q, k, v, **kw):
-    """``_chunked_attention``; on DTensors (under a mesh) each rank runs it
-    on its shards (``local_map``): batch and kv heads split the work, and
-    a key/value sequence sharded over a mesh dim (the ``kv_seq`` cache)
-    is combined by a distributed softmax (``_seq_sharded_attention``)."""
+    """Attention of q (B, Sq, H, dh) over k/v (B, Skv, Hkv, dh), query head
+    i reading kv head i // (H / Hkv); returns (B, Sq, H, dh).
+
+    ``_chunked_attention`` on the grouped heads (``_grouped_attention``);
+    on DTensors (under a mesh) each rank runs it on its shards
+    (``local_map``): batch and heads split the work. Where a mesh dim
+    shards the query heads but not the kv heads (its size does not divide
+    Hkv), q stays split there and K/V come whole: each rank holds H / M
+    contiguous query heads and reads the kv heads they need, so its K/V
+    gradients are partial sums over that dim (``in_grad_placements``). A
+    key/value sequence sharded over a mesh dim (the ``kv_seq`` cache,
+    decoding) is combined by a distributed softmax
+    (``_seq_sharded_attention``); q is whole on that dim, since each rank
+    attends every head over its slice of the sequence."""
+    g = q.shape[2] // k.shape[2]
     if get_mesh() is None or not hasattr(q, "placements"):
-        return _chunked_attention(q, k, v, **kw)
-    from torch.distributed.tensor import Replicate, Shard
+        return _grouped_attention(q, k, v, g=g, **kw)
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    q_pl, kv_pl, seq_dims = [], [], []
+    q_pl, kv_pl, seq_dims, split = [], [], [], []
     for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
-        if pk.is_shard(1):
+        if pk.is_shard(1):     # decoding: q whole for the distributed softmax
             seq_dims.append(i)
             q_pl.append(Replicate())
             kv_pl.append(Shard(1))
-        elif pq.is_shard(2) or pk.is_shard(2):
+        elif pk.is_shard(2) or (pq.is_shard(2)
+                                and k.shape[2] % mesh.size(i) == 0):
             q_pl.append(Shard(2))
             kv_pl.append(Shard(2))
+        elif pq.is_shard(2):
+            split.append(i)
+            q_pl.append(Shard(2))
+            kv_pl.append(Replicate())
         elif pq.is_shard(0) or pk.is_shard(0):
             q_pl.append(Shard(0))
             kv_pl.append(Shard(0))
         else:
             q_pl.append(Replicate())
             kv_pl.append(Replicate())
-    if len(seq_dims) > 1:
+    kv_grad = [Partial() if i in split else pl for i, pl in enumerate(kv_pl)]
+    if len(seq_dims) > 1 or (seq_dims and split):
         raise NotImplementedError("a key/value sequence sharded over more "
-                                  "than one mesh dim")
+                                  "than one mesh dim, or beside query "
+                                  "heads split within a kv group")
     q, k, v = (t.redistribute(mesh, pl) for t, pl in
                ((q, q_pl), (k, kv_pl), (v, kv_pl)))
     rep = [Replicate()] * mesh.ndim
@@ -163,10 +181,25 @@ def _attention(q, k, v, **kw):
         fn = functools.partial(_seq_sharded_attention,
                                group=mesh.get_group(dim), lo=lo, **kw)
     else:
-        fn = functools.partial(_local_attention, **kw)
+        fn = functools.partial(
+            _grouped_attention, g=g,
+            q_lo=_shard_offset(mesh, q_pl, 2, q.shape[2]),
+            kv_lo=_shard_offset(mesh, kv_pl, 2, k.shape[2]), **kw)
     return local_map(fn, out_placements=q_pl,
                      in_placements=(q_pl, kv_pl, kv_pl, rep, rep),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, rep, rep),
                      device_mesh=mesh)(q, k, v, q_pos, kv_pos)
+
+
+def _shard_offset(mesh, pls, dim: int, n: int) -> int:
+    """The global index of this rank's first element along tensor dim
+    ``dim`` (of size ``n``) under placements ``pls``."""
+    lo = 0
+    for i, pl in enumerate(pls):
+        if pl.is_shard(dim):
+            n //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * n
+    return lo
 
 
 def _replicated(t, mesh):
@@ -177,23 +210,47 @@ def _replicated(t, mesh):
                               run_check=False)
 
 
-def _local_attention(q, k, v, q_positions, kv_positions, **kw):
-    return _chunked_attention(q, k, v, q_positions=q_positions,
-                              kv_positions=kv_positions, **kw)
+def _grouped_attention(q, k, v, q_positions, kv_positions, *, g: int,
+                       q_lo: int = 0, kv_lo: int = 0, **kw):
+    """``_chunked_attention`` of query heads ``[q_lo, q_lo + Hq)`` (q:
+    (B, Sq, Hq, dh)) over the kv heads from ``kv_lo`` on (k/v: (B, Skv,
+    n, dh)), query head i reading kv head i // g; returns (B, Sq, Hq, dh).
+    Where the query heads do not start and end on a group's edge (a rank's
+    share of the heads split within a group), the range is cut at the
+    edges into a partial group at each end and whole groups between, each
+    attended with its own kv heads."""
+    b, sq, hq, dh = q.shape
+    hi = q_lo + hq
+    first = min(-(-q_lo // g) * g, hi)      # the first group edge in range
+    last = max(hi // g * g, first)          # the last one
+    outs = []
+    for lo, up in ((q_lo, first), (first, last), (last, hi)):
+        if up <= lo:
+            continue
+        n_kv = (up - lo) // g if (lo, up) == (first, last) else 1
+        kv = lo // g - kv_lo
+        out = _chunked_attention(
+            q[:, :, lo - q_lo:up - q_lo].reshape(b, sq, n_kv, -1, dh),
+            k[:, :, kv:kv + n_kv], v[:, :, kv:kv + n_kv],
+            q_positions=q_positions, kv_positions=kv_positions, **kw)
+        outs.append(out.reshape(b, sq, up - lo, dh))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def _seq_sharded_attention(q, k, v, q_positions, kv_positions, *, group,
                            lo: int, window, cap, chunk):
-    """Attention of ``q`` over this rank's slice ``[lo, lo + Skv_local)``
-    of the key/value sequence, combined over ``group`` (the ranks holding
-    the other slices): the max and the sums of the softmax are
-    all-reduced (a distributed softmax), as the reference's decode over a
-    sequence-sharded cache does. Forward only (decoding)."""
+    """Attention of ``q`` (B, Sq, H, dh) over this rank's slice ``[lo, lo
+    + Skv_local)`` of the key/value sequence, combined over ``group`` (the
+    ranks holding the other slices): the max and the sums of the softmax
+    are all-reduced (a distributed softmax), as the reference's decode
+    over a sequence-sharded cache does. Forward only (decoding)."""
     from torch.distributed import _functional_collectives as funcol
-    b, sq, hkv, g, dh = q.shape
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
     kv_pos = kv_positions[lo:lo + k.shape[1]][None, :]
     q_pos = q_positions[:, None]
-    s = torch.einsum("bchgd,bshd->bhgcs", q.float(), k.float()) \
+    s = torch.einsum("bchgd,bshd->bhgcs",
+                     q.reshape(b, sq, hkv, h // hkv, dh).float(), k.float()) \
         * (1.0 / math.sqrt(dh))
     if cap is not None:
         s = softcap(s, cap)
@@ -208,7 +265,7 @@ def _seq_sharded_attention(q, k, v, q_positions, kv_positions, *, group,
     num = funcol.wait_tensor(funcol.all_reduce(
         torch.einsum("bhgcs,bshd->bhgcd", p, v.float()), "sum", group))
     out = num / den[..., None]
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
 def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
@@ -222,7 +279,6 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     """
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    g = h // hkv
     window = cfg.window if local else None
 
     q = _split_heads(x @ p.wq.to(x.dtype).reshape(d, h * dh), h)
@@ -240,12 +296,11 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
-    qg = _group_heads(q, hkv, g)
 
     if cache is None or s > 1:
         # Full sequence, or prefill from an empty cache: attend within the
         # prompt itself; the cache receives the tail needed for decoding.
-        out = _attention(qg, k, v, q_positions=positions,
+        out = _attention(q, k, v, q_positions=positions,
                          kv_positions=positions, window=window,
                          cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         if cache is not None:
@@ -259,12 +314,12 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
         # Single-token decode: ring write at index % eff, mask by positions.
         eff = cache["k"].shape[1]
         _ring_write(cache, cache_index % eff, k, v, positions)
-        out = _attention(qg, cache["k"], cache["v"], q_positions=positions,
+        out = _attention(q, cache["k"], cache["v"], q_positions=positions,
                          kv_positions=cache["pos"], window=window,
                          cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
     # Back to q's head sharding before the heads merge (under a mesh; the
     # backward splits the merged heads again, see _GradWhole).
-    out = constrain(out.reshape(b, s, h, dh), "batch", None, "heads", None)
+    out = constrain(out, "batch", None, "heads", None)
     out = _grad_whole(out.reshape(b, s, h * dh), 2, h)
     out = out @ p.wo.to(x.dtype).reshape(h * dh, d)
     return constrain(out, "batch", "resid_seq", "resid_embed")
@@ -316,15 +371,6 @@ def _grad_whole(t, dim: int, n: int):
     if get_mesh() is None or not hasattr(t, "placements"):
         return t
     return _GradWhole.apply(t, dim, n)
-
-
-def _group_heads(q, hkv: int, g: int):
-    """(B, S, H, dh) -> (B, S, Hkv, G, dh). A DTensor whose heads are
-    sharded over more ranks than ``hkv`` divides is first replicated on
-    them: one mesh dim cannot shard two tensor dims, as GSPMD's split of
-    the heads' shard over (Hkv, G) would."""
-    b, s, h, dh = q.shape
-    return _replicated_dim(q, 2, hkv).reshape(b, s, hkv, g, dh)
 
 
 def _ring_write(cache: dict, slot: int, k, v, positions,

@@ -115,12 +115,11 @@ def train(cfg: ModelConfig, hyper: Hyper, *, steps: int, batch: int, seq: int,
     state is sharded by its logical axes (``shard_state``), each rank
     reads its data-parallel slice of the batch (``TokenPipeline(n_ranks,
     rank)``) and checkpoints are saved whole and restored onto the mesh.
-    Gradient compression and microbatches are not supported there."""
+    Each microbatch is sharded over the data ranks as the batch is
+    (``step.split_microbatches``), and the compressor's error feedback is
+    made after the state is sharded, on the parameters' placements."""
     dev = resolve_device(device)
     mesh = get_mesh()
-    if mesh is not None and (compressor is not None or microbatches != 1):
-        raise NotImplementedError("gradient compression and microbatches "
-                                  "under a mesh")
     n_ranks, rank = (1, 0) if mesh is None else _data_rank(mesh, batch, seq)
     pipeline = TokenPipeline(cfg.vocab, batch, seq, seed=seed,
                              n_ranks=n_ranks, rank=rank)

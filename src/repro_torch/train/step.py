@@ -5,8 +5,10 @@ The port of ``src/repro/train/step.py``. Gradients come from autograd on
 ``models.model.loss_fn`` (the model rematerialises each superblock in the
 backward pass under its ``remat_policy``); microbatches run one after
 another, their f32 gradients summed and divided once, as the reference's
-``lax.scan`` does. The step updates the state's model and moments in
-place and returns the state with its step advanced.
+``lax.scan`` does (under a mesh each microbatch is sharded over the data
+ranks, and the sums are DTensors on the parameters' placements). The
+step updates the state's model and moments in place and returns the
+state with its step advanced.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 from repro_torch.models.model import (Model, ModelConfig, init_params,
                                       loss_fn, model_placements,
                                       replace_parameters)
-from repro_torch.sharding import get_mesh, replicate_plain
+from repro_torch.sharding import (get_mesh, logical_to_spec, placements,
+                                 replicate_plain)
 from repro_torch.train.optimizer import (Hyper, adamw_init, adamw_update,
                                          decayed)
 
@@ -101,6 +104,39 @@ def loss_and_grads(model: Model, batch: dict, cast_bf16: bool = False):
     return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
 
 
+def split_microbatches(batch: dict, k: int) -> list:
+    """``batch`` cut into ``k`` microbatches of consecutive rows, as the
+    reference's reshape to ``(k, B / k, ...)`` cuts it: microbatch i holds
+    the global rows ``[i B / k, (i + 1) B / k)``. Under a mesh (DTensor
+    batches) each microbatch is sharded on the ``batch`` axis over the
+    data ranks, as the whole batch is (``loop.shard_batch``): every rank
+    gathers the batch (token ids, 4 bytes a position) and keeps its own
+    rows of each microbatch. Raises unless ``k`` times the data ranks
+    divide the batch."""
+    first = next(iter(batch.values()))
+    b, mesh = first.shape[0], get_mesh()
+    dtensors = mesh is not None and hasattr(first, "placements")
+    n = 1
+    for axis in logical_to_spec(("batch",))[0] if dtensors else ():
+        n *= mesh.size(mesh.mesh_dim_names.index(axis))
+    if b % (k * n):
+        raise ValueError(f"a batch of {b} rows does not split into {k} "
+                         f"microbatches over {n} data ranks ({b} is not a "
+                         f"multiple of {k} x {n})")
+    rows = b // k
+    if not dtensors:
+        return [{key: v[i * rows:(i + 1) * rows] for key, v in batch.items()}
+                for i in range(k)]
+    from torch.distributed.tensor import distribute_tensor
+    whole = {key: v.full_tensor() for key, v in batch.items()}
+    return [{key: distribute_tensor(
+                v[i * rows:(i + 1) * rows], mesh,
+                placements(("batch",) + (None,) * (v.ndim - 1),
+                           (rows,) + tuple(v.shape[1:])),
+                src_data_rank=None)
+             for key, v in whole.items()} for i in range(k)]
+
+
 def make_train_step(cfg: ModelConfig, hyper: Hyper, microbatches: int = 1,
                     compressor=None, cast_bf16: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
@@ -117,17 +153,12 @@ def make_train_step(cfg: ModelConfig, hyper: Hyper, microbatches: int = 1,
         if microbatches == 1:
             loss, grads = loss_and_grads(model, batch, cast_bf16)
         else:
-            micro = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(model.parameters()).device)
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in model.named_parameters()}
-            for i in range(microbatches):
-                mb_loss, g = loss_and_grads(
-                    model, {k: v[i] for k, v in micro.items()}, cast_bf16)
+            for mb in split_microbatches(batch, microbatches):
+                mb_loss, g = loss_and_grads(model, mb, cast_bf16)
                 torch._foreach_add_(list(grads.values()),
                                     [g[n] for n in grads])
                 loss = loss + mb_loss
