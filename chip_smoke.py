@@ -140,12 +140,13 @@ Phases, each printing one JSON line:
                ``decode_32k`` on the 512-rank one, one child each, then
                ``repro_torch.bench.run --only roofline``; per cell its
                per-device FLOPs, bytes, wire bytes by kind, peak bytes,
-               trace seconds and dominant roofline term, and for
-               ``train_4k`` and ``prefill_32k`` beside the counts they
-               read while the attention replicated the query heads over
-               ``model`` (``REPLICATED_HEADS``): ``train_4k`` at most half
-               those FLOPs, both below those peaks. (a), (b) and (c) run
-               side by side;
+               trace seconds and dominant roofline term: ``train_4k``'s
+               and the decode cells' FLOPs within 1% of the count the
+               dry run reads on torch 2.13 for this tree
+               (``DRYRUN_FLOPS``), every cell's FLOPs and peak no higher
+               than the earlier tree's (``EARLIER_CELLS``), the decode
+               cells' peaks within 1% of it. (a), (b) and (c) run side by
+               side;
  13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
                chaos}_smoke.py`` on the card, one child each (servers in
                ``"cuda"`` mode), each passing its own gates and launching
@@ -2232,12 +2233,22 @@ SHARDING_VARIANTS = {"microbatches_4": {"microbatches": 4},
 # by shape_supported for a full-attention architecture), one process each.
 SHARDING_CELLS = (("train_4k", "--single-pod"), ("prefill_32k", "--single-pod"),
                   ("decode_32k", "--single-pod"), ("decode_32k", "--multi-pod"))
-# Per-device FLOPs and peak bytes of the two cells while the attention
-# replicated the query heads over the 16-way model axis (16 heads in 8 kv
-# groups); with the heads kept sharded, train_4k must read at most half
-# the FLOPs and both must stay below their peaks.
-REPLICATED_HEADS = {"train_4k/single": (3.071e14, 46_101_102_346),
-                    "prefill_32k/single": (4.975e14, 19_116_592_128)}
+# Per-device FLOPs of the cells as the dry run reads them for this tree on
+# torch 2.13 (``PYTHONPATH=src python -m repro_torch.launch.dryrun --arch
+# qwen3-0.6b --shape SHAPE --single-pod|--multi-pod`` on a CPU): the
+# projections' placements are stated (``layers._project``), not DTensor's
+# choice, so the card's release must read the same within 1%.
+DRYRUN_FLOPS = {"train_4k/single": 32_926_293_032_960,
+                "decode_32k/single": 4_354_080_768,
+                "decode_32k/multi": 2_177_040_384}
+DRYRUN_FLOPS_RTOL = 0.01
+# Per-device FLOPs and peak bytes of the cells on the card's release
+# before the projections' placements were stated (the query heads already
+# sharded): none may read more; the decode cells' peaks stay within 1%.
+EARLIER_CELLS = {"train_4k/single": (7.622e13, 8_138_772_234),
+                 "prefill_32k/single": (35_668_629_651_456, 3_186_494_464),
+                 "decode_32k/single": (5.235e9, 2_847_329_312),
+                 "decode_32k/multi": (2.617e9, 1_907_805_200)}
 
 
 def _child(fn: str, *args) -> subprocess.Popen:
@@ -2493,19 +2504,24 @@ def phase_sharding(card: str, train_out: dict) -> dict:
             "peak_bytes": rec["memory_analysis"]["peak_bytes"],
             "trace_s": rec["trace_s"], "terms_s": terms,
             "dominant": max(terms, key=terms.get)})
-        if label in REPLICATED_HEADS:
-            flops, peak = (rec["cost_analysis"]["flops"],
-                           rec["memory_analysis"]["peak_bytes"])
-            was_flops, was_peak = REPLICATED_HEADS[label]
-            cells[-1].update(replicated_heads_flops=was_flops,
-                             replicated_heads_peak_bytes=was_peak,
-                             flops_vs_replicated=flops / was_flops,
-                             peak_vs_replicated=peak / was_peak)
-            most = was_flops / 2 if shape == "train_4k" else was_flops
-            if not (flops <= most and peak < was_peak):
-                bad.append(f"cell {label}: {flops} FLOPs, {peak} B peak "
-                           f"against {was_flops}, {was_peak} with the "
-                           f"heads replicated")
+        flops, peak = (rec["cost_analysis"]["flops"],
+                       rec["memory_analysis"]["peak_bytes"])
+        was_flops, was_peak = EARLIER_CELLS[label]
+        cells[-1].update(earlier_flops=was_flops, earlier_peak_bytes=was_peak,
+                         flops_vs_earlier=flops / was_flops,
+                         peak_vs_earlier=peak / was_peak)
+        if flops > was_flops or peak > was_peak:
+            bad.append(f"cell {label}: {flops} FLOPs, {peak} B peak "
+                       f"against {was_flops}, {was_peak} before")
+        if shape == "decode_32k" and abs(peak / was_peak - 1) > 0.01:
+            bad.append(f"cell {label}: peak {peak} B against {was_peak}")
+        if label in DRYRUN_FLOPS:
+            want = DRYRUN_FLOPS[label]
+            cells[-1].update(dryrun_flops_torch_2_13=want,
+                             flops_vs_torch_2_13=flops / want)
+            if abs(flops / want - 1) > DRYRUN_FLOPS_RTOL:
+                bad.append(f"cell {label}: {flops} FLOPs against {want} "
+                           f"on torch 2.13")
     out = {"phase": "sharding", "card": card, "arch": LM_ARCH,
            "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
            "mesh_step": step, "cells": cells,

@@ -32,7 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import (apply_rope, gelu, make_rope,
                                        rms_norm, sigmoid, silu, softcap,
                                        softplus, trunc_normal_)
-from repro_torch.sharding import constrain, get_mesh
+from repro_torch.sharding import constrain, get_mesh, placements
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -277,13 +277,12 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     positions. cache_index: the position of x's first token (an int).
     Returns the output (B, S, d).
     """
-    b, s, d = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    s, dh = x.shape[1], cfg.head_dim
     window = cfg.window if local else None
 
-    q = _split_heads(x @ p.wq.to(x.dtype).reshape(d, h * dh), h)
-    k = _split_heads(x @ p.wk.to(x.dtype).reshape(d, hkv * dh), hkv)
-    v = _split_heads(x @ p.wv.to(x.dtype).reshape(d, hkv * dh), hkv)
+    kv_axes = ("batch", None, "kv_heads", None)
+    q, k, v = _project(x, [w.to(x.dtype) for w in (p.wq, p.wk, p.wv)],
+                       [("batch", None, "heads", None), kv_axes, kv_axes])
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -317,60 +316,96 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
         out = _attention(q, cache["k"], cache["v"], q_positions=positions,
                          kv_positions=cache["pos"], window=window,
                          cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
-    # Back to q's head sharding before the heads merge (under a mesh; the
-    # backward splits the merged heads again, see _GradWhole).
-    out = constrain(out, "batch", None, "heads", None)
-    out = _grad_whole(out.reshape(b, s, h * dh), 2, h)
-    out = out @ p.wo.to(x.dtype).reshape(h * dh, d)
+    (out,) = _project(out, [p.wo.to(x.dtype)],
+                      [("batch", "resid_seq", "resid_embed")], n_in=2)
     return constrain(out, "batch", "resid_seq", "resid_embed")
 
 
-def _split_heads(t, n: int):
-    """(B, S, n * dh) -> (B, S, n, dh). A DTensor whose last dim is
-    sharded over more ranks than ``n`` divides (DTensor may shard a
-    projection's output columns where the heads do not divide) is first
-    replicated there."""
-    b, s, width = t.shape
-    return _replicated_dim(t, 2, n).view(b, s, n, width // n)
+def _project(x, ws, out_axes, n_in: int = 1):
+    """``x`` (B, S, *c) times each weight of ``ws`` (*c, *n), contracted
+    over c (``x``'s last ``n_in`` dims) in one 2-D product: a list of
+    (B, S, *n), one a weight, whose logical axes ``out_axes`` lists.
+
+    On DTensors (under a mesh) each rank multiplies the shards that the
+    reference's placements give it: ``local_map`` with the placements of
+    ``_project_placements``, stated per mesh dim rather than left to
+    DTensor's strategies, x redistributed once for all of ``ws``. Each
+    product is then redistributed to its axes (split columns gathered,
+    partial sums reduce-scattered or all-reduced), and every input's
+    gradient comes back in the input's own placements."""
+    b, s = x.shape[:2]
+    shapes = [w.shape[n_in:] for w in ws]
+    flat = [w if w.dim() == 2 else w.reshape(math.prod(w.shape[:n_in]), -1)
+            for w in ws]
+    if get_mesh() is None or not hasattr(x, "placements"):
+        outs = _matmuls(x, *flat)
+    else:
+        outs = _project_local(x, flat, [
+            placements(ax, (b, s, *n)) for ax, n in zip(out_axes, shapes)])
+    return [o if len(n) == 1 else o.view(b, s, *n)
+            for o, n in zip(outs, shapes)]
 
 
-def _replicated_dim(t, dim: int, n: int):
-    """``t``, on DTensors replicated on the mesh dims that shard ``dim``
-    when their product does not divide ``n``."""
-    if get_mesh() is None or not hasattr(t, "placements"):
-        return t
-    from torch.distributed.tensor import Replicate
-    mesh = t.device_mesh
-    k = 1
-    for i, pl in enumerate(t.placements):
-        if pl.is_shard(dim):
-            k *= mesh.size(i)
-    if n % k == 0:
-        return t
-    return t.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl
-                                 for pl in t.placements])
+def _project_local(x, ws, targets):
+    """``_project``'s products on DTensors: ``x`` (B, S, *c) times the 2-D
+    weights ``ws``, each product brought to its placements in
+    ``targets``."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = [_project_placements(x.placements, w.placements, w.shape[1],
+                                mesh.shape) for w in ws]
+    if any(r[0] != rows[0][0] for r in rows):   # x placed otherwise: apart
+        return tuple(o for w, t in zip(ws, targets)
+                     for o in _project_local(x, [w], [t]))
+    x_pl, _, _, x_grad, _ = rows[0]
+    outs = local_map(_matmuls, out_placements=tuple(r[2] for r in rows),
+                     in_placements=(x_pl,) + tuple(r[1] for r in rows),
+                     in_grad_placements=(x_grad,) + tuple(r[4] for r in rows),
+                     device_mesh=mesh)(
+        x.redistribute(mesh, x_pl),
+        *(w.redistribute(mesh, r[1]) for w, r in zip(ws, rows)))
+    return tuple(o.redistribute(mesh, t) for o, t in zip(outs, targets))
 
 
-class _GradWhole(torch.autograd.Function):
-    """Identity whose gradient is ``_replicated_dim``'s: the backward's
-    split of merged heads needs a gradient whose heads dim divides."""
+def _project_placements(x_pls, w_pls, cols: int, sizes):
+    """The placements of one of ``_project``'s products on each mesh dim
+    (of sizes ``sizes``): (x, the 2-D weight, the (B, S, N) product, x's
+    gradient, the weight's gradient), each a list over the mesh dims.
 
-    @staticmethod
-    def forward(ctx, t, dim, n):
-        ctx.dim, ctx.n = dim, n
-        return t.view_as(t)
+    * A dim that splits x's tokens (batch) keeps them split and gathers
+      the weight; the weight's gradients are partial sums.
+    * Column parallel: where the dim splits the weight's columns (q on
+      ``heads``, ``w1``/``w3`` on ``tensor``), or the weight is whole on
+      it and its columns divide evenly (K/V whose heads the dim does not
+      divide; their products are gathered whole after), x is gathered
+      and each rank multiplies its columns; x's gradients are partial
+      sums.
+    * Row parallel: where the dim splits the weight's rows (``wo`` on
+      ``heads``, ``w2`` on ``tensor``), or x's first contracted dim while
+      the weight is whole with columns that do not divide, x and the rows
+      split alike and the products are partial sums.
+    * Else both are whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rows = []
+    for px, pw, size in zip(x_pls, w_pls, sizes):
+        if isinstance(px, Shard) and px.dim < 2:
+            rows.append((px, Replicate(), px, px, Partial()))
+        elif pw.is_shard(1) or (not pw.is_shard() and cols % size == 0):
+            rows.append((Replicate(), Shard(1), Shard(2), Partial(),
+                         Shard(1)))
+        elif pw.is_shard(0) or (isinstance(px, Shard) and px.dim == 2):
+            rows.append((Shard(2), Shard(0), Partial(), Shard(2), Shard(0)))
+        else:
+            rows.append((Replicate(),) * 5)
+    return tuple(list(col) for col in zip(*rows))
 
-    @staticmethod
-    def backward(ctx, grad):
-        return _replicated_dim(grad, ctx.dim, ctx.n), None, None
 
-
-def _grad_whole(t, dim: int, n: int):
-    """``t``; on DTensors its gradient is replicated on ``dim`` where the
-    shard does not divide ``n`` (``_GradWhole``)."""
-    if get_mesh() is None or not hasattr(t, "placements"):
-        return t
-    return _GradWhole.apply(t, dim, n)
+def _matmuls(x, *ws):
+    """``x`` (B, S, *c), its last dims flattened, @ each 2-D weight of
+    ``ws``: a tuple of (B, S, N)."""
+    if x.dim() > 3:
+        x = x.flatten(2)
+    return tuple(x @ w for w in ws)
 
 
 def _ring_write(cache: dict, slot: int, k, v, positions,
@@ -481,9 +516,13 @@ def mlp_axes():
 def mlp_apply(p, x, cfg):
     """SwiGLU (``mlp_act="silu"``) or GeGLU with the tanh GELU."""
     act = _act(cfg)
-    hcur = act(x @ p.w1.to(x.dtype)) * (x @ p.w3.to(x.dtype))
-    hcur = constrain(hcur, "batch", None, "tensor")
-    return hcur @ p.w2.to(x.dtype)
+    ff_axes = ("batch", None, "tensor")
+    h1, h3 = _project(x, [p.w1.to(x.dtype), p.w3.to(x.dtype)],
+                      [ff_axes, ff_axes])
+    hcur = constrain(act(h1) * h3, *ff_axes)
+    (out,) = _project(hcur, [p.w2.to(x.dtype)],
+                      [("batch", "resid_seq", "resid_embed")])
+    return out
 
 
 # ---------------------------------------------------------------------------
