@@ -145,8 +145,24 @@ Phases, each printing one JSON line:
                dry run reads on torch 2.13 for this tree
                (``DRYRUN_FLOPS``), every cell's FLOPs and peak no higher
                than the earlier tree's (``EARLIER_CELLS``), the decode
-               cells' peaks within 1% of it. (a), (b) and (c) run side by
-               side;
+               cells' peaks within 1% of it, and every cell's FLOPs and
+               peak within 1% of the card's reading once the
+               projections' placements were stated, before the MoE's
+               (``PROJECTION_CELLS``); (d) the
+               MoE and the ``blk_out`` remat under a mesh: in (b) also
+               deepseek-moe's smoke config with the sort dispatch and
+               qwen3's with ``remat_policy="blk_out"``, each against its
+               plain steps, ``torch.equal``; the per-layer tally
+               (``scripts/torch_dryrun_flops.py --per-layer``) of
+               dbrx-132b's and deepseek-moe-16b's ``train_4k`` on (16,
+               16) under both dispatches, one child each, within 1% of
+               the count torch 2.13 reads for this tree, which is the
+               count of the reference's placements
+               (``MOE_LAYER_FLOPS``), and deepseek-moe's with no product
+               over all its E x C expert slots; and the dry run's
+               ``remat_names`` (qwen3-0.6b), ``combo`` (deepseek-moe)
+               and ``ssm_mem`` (mamba2) variants ``ok`` at 2 layers. (a)
+               to (d) run side by side;
  13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
                chaos}_smoke.py`` on the card, one child each (servers in
                ``"cuda"`` mode), each passing its own gates and launching
@@ -2251,6 +2267,43 @@ EARLIER_CELLS = {"train_4k/single": (7.622e13, 8_138_772_234),
                  "decode_32k/multi": (2.617e9, 1_907_805_200)}
 
 
+# Per-device FLOPs and peak bytes of the cells on the card's release once
+# the projections' placements were stated, before the MoE's were:
+# qwen3-0.6b has no MoE and its remat policy is "nothing", so each must
+# stay within 1%.
+PROJECTION_CELLS = {
+    "train_4k/single": (32_926_293_032_960, 7_817_913_354),
+    "prefill_32k/single": (35_668_629_651_456, 1_997_016_064),
+    "decode_32k/single": (4_354_080_768, 2_847_329_312),
+    "decode_32k/multi": (2_177_040_384, 1_907_805_200)}
+PROJECTION_CELLS_RTOL = 0.01
+# (b) also runs these smoke configs on the (1, 1) mesh and on the plain
+# path: the sort dispatch's MoE and the blk_out remat policy.
+SHARDING_CONFIGS = {"deepseek_moe_sort": ("deepseek-moe-16b",
+                                          {"moe_impl": "sort"}),
+                    "qwen3_blk_out": ("qwen3-0.6b",
+                                      {"remat_policy": "blk_out"})}
+# (d): one MoE layer's per-device FLOPs of train_4k on (16, 16) (2 layers'
+# tally minus 1's; deepseek-moe's first layer is dense) as torch 2.13
+# reads them for this tree, each equal to the count of the reference's
+# placements (``tests/test_torch_sharded_moe.py::
+# reference_moe_layer_flops``); keyed "arch" or "arch/variant".
+MOE_LAYER_FLOPS = {"dbrx-132b": 43_193_412_354_048,
+                   "dbrx-132b/moe_sort": 37_008_659_447_808,
+                   "deepseek-moe-16b": 7_357_278_978_048,
+                   "deepseek-moe-16b/moe_sort": 3_749_506_449_408}
+MOE_LAYER_RTOL = 0.01
+# Products over every expert slot (E x C) that a rank must not run: the
+# parent tree's combine ran deepseek-moe's 64 x 480 slots on every rank.
+# (dbrx's 16 x 1280 equals its rank's batch rows x C, so not checked.)
+MOE_WHOLE_SLOTS = {"deepseek-moe-16b": 64 * 480}
+# (d): dry-run variants that must run ok at 2 layers (on torch 2.11 the
+# last two raised at the logits and at the tied table's gradient before).
+SHARDING_VARIANT_CELLS = (("qwen3-0.6b", "remat_names"),
+                          ("deepseek-moe-16b", "combo"),
+                          ("mamba2-1.3b", "ssm_mem"))
+
+
 def _child(fn: str, *args) -> subprocess.Popen:
     """``fn(*args)`` of this module in a fresh Python process: the dry
     run's fake process group and the card's NCCL group never share one,
@@ -2359,8 +2412,10 @@ def sharding_mesh_step(path: str, port: int) -> None:
     ``constrain`` a redistribute on the card), SHARDING_STEPS steps; then
     the same steps of the plain path from the same seed. Both under
     deterministic algorithms, as the loop runs them. Then the same pair
-    for each of SHARDING_VARIANTS (microbatches; a gradient codec). The
-    parameters are compared on the host; the result goes to ``path``."""
+    for each of SHARDING_VARIANTS (microbatches; a gradient codec) and
+    for each smoke config of SHARDING_CONFIGS. The parameters are
+    compared on the host; the result goes to ``path``."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2382,6 +2437,13 @@ def sharding_mesh_step(path: str, port: int) -> None:
                     for label, m in (("mesh", mesh), ("plain", None))}
             out["variants"][name] = dict(runs, **_sharding_compare(
                 runs["mesh"], runs["plain"]))
+        out["configs"] = {}
+        for name, (arch, over) in SHARDING_CONFIGS.items():
+            smoke = dataclasses.replace(get_config(arch, smoke=True), **over)
+            runs = {label: _sharding_run(smoke, m, {})
+                    for label, m in (("mesh", mesh), ("plain", None))}
+            out["configs"][name] = dict(runs, **_sharding_compare(
+                runs["mesh"], runs["plain"]))
     finally:
         dist.destroy_process_group()
     Path(path).write_text(json.dumps(out))
@@ -2400,12 +2462,78 @@ def _wait(proc: subprocess.Popen, label: str, timeout: float) -> str:
     return stdout
 
 
+def _sharding_scripts() -> dict:
+    """(d)'s children: ``{label: argv}`` of the repository's scripts, the
+    per-layer tallies of MOE_LAYER_FLOPS and the variant cells."""
+    script = {}
+    for key in MOE_LAYER_FLOPS:
+        arch, _, variant = key.partition("/")
+        script[f"layer {key}"] = [
+            "scripts/torch_dryrun_flops.py", "--arch", arch, "--shape",
+            "train_4k", "--per-layer", "--top", "1000"] + (
+            ["--variant", variant] if variant else [])
+    for arch, variant in SHARDING_VARIANT_CELLS:
+        script[f"variant {arch}/{variant}"] = [
+            "scripts/torch_dryrun_sweep.py", "--arch", arch, "--shape",
+            "train_4k", "--single-pod", "--variants", variant, "--layers",
+            "2"]
+    return script
+
+
+def _sharding_moe(logs: dict, out_dir: Path, bad: list) -> tuple:
+    """(d)'s records from the children's output (``logs`` by label), each
+    also written to ``out_dir``; failed checks appended to ``bad``.
+    Returns (MoE layers, variant cells)."""
+    moe_layers, variant_cells = [], []
+    for label in _sharding_scripts():
+        rec = json.loads(logs[label].strip().splitlines()[-1])
+        (out_dir / (label.replace(" ", "_").replace("/", "__")
+                    + ".json")).write_text(json.dumps(rec))
+        kind, key = label.split(" ")
+        if kind == "variant":
+            variant_cells.append({"cell": key, "ok": rec.get("ok"),
+                                  "error": rec.get("error"),
+                                  "flops_per_device": rec.get("flops"),
+                                  "peak_bytes": rec.get("peak_bytes"),
+                                  "trace_s": rec.get("trace_s")})
+            if not rec.get("ok"):
+                bad.append(f"variant {key} failed: {rec.get('error')}")
+            continue
+        if not rec.get("ok"):
+            bad.append(f"MoE layer {key} failed: {rec.get('error')}")
+            moe_layers.append({"layer": key, "ok": False,
+                               "error": rec.get("error")})
+            continue
+        want = MOE_LAYER_FLOPS[key]
+        slots = MOE_WHOLE_SLOTS.get(key.partition("/")[0])
+        whole = [k for k in rec["by_op"] if slots is not None and
+                 str(slots) in k.replace(",", " ").replace("(", " ")
+                 .replace(")", " ").split()]
+        moe_layers.append({"layer": key, "ok": True,
+                           "flops_per_device": rec["flops"],
+                           "flops_torch_2_13": want,
+                           "flops_vs_torch_2_13": rec["flops"] / want,
+                           "peak_bytes": rec["peak_bytes"],
+                           "wire_bytes_by_kind": rec["wire_bytes"],
+                           "whole_slot_products": whole,
+                           "top": dict(list(rec["by_op"].items())[:4])})
+        if abs(rec["flops"] / want - 1) > MOE_LAYER_RTOL:
+            bad.append(f"MoE layer {key}: {rec['flops']} FLOPs against "
+                       f"{want} on torch 2.13")
+        if whole:
+            bad.append(f"MoE layer {key} multiplies all {slots} expert "
+                       f"slots: {whole}")
+    return moe_layers, variant_cells
+
+
 def phase_sharding(card: str, train_out: dict) -> dict:
     """(a) the dry run's prediction of the train phase's step against its
     measurement; (b) the step on a (1, 1) mesh, DTensors on the card,
     against the plain step; (c) qwen3-0.6b's reference cells dry-run on
     the production meshes (256 and 512 fake ranks) and the roofline suite
-    on them. (a), (b) and the cells run as child processes side by side."""
+    on them; (d) the MoE layers' per-device tallies and the MoE and remat
+    variants on (16, 16). Every part runs in child processes side by
+    side."""
     import os
     import socket
     from repro_torch.bench import run as bench_run
@@ -2429,6 +2557,11 @@ def phase_sharding(card: str, train_out: dict) -> dict:
         procs[label] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              LM_ARCH, "--shape", shape, mesh, "--force"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    script = _sharding_scripts()
+    for label, argv in script.items():
+        procs[label] = subprocess.Popen(
+            [sys.executable] + argv, cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     logs, failed = {}, []
     try:
@@ -2478,6 +2611,14 @@ def phase_sharding(card: str, train_out: dict) -> dict:
         if var["mesh"]["param_types"] != ["DTensor"]:
             bad.append(f"{name}: mesh parameters are "
                        f"{var['mesh']['param_types']}")
+    for name, pair in step["configs"].items():
+        if not pair["equal"]:
+            bad.append(f"(1, 1)-mesh step of {name} differs from the plain "
+                       f"one: {pair['worst']}")
+        if pair["mesh"]["param_types"] != ["DTensor"]:
+            bad.append(f"{name}: mesh parameters are "
+                       f"{pair['mesh']['param_types']}")
+    moe_layers, variant_cells = _sharding_moe(logs, out_dir, bad)
     if bench_run.main(["--only", "roofline", "--out",
                        str(OUT_DIR / "bench")]) != 0:
         bad.append("the roofline suite failed")
@@ -2515,6 +2656,14 @@ def phase_sharding(card: str, train_out: dict) -> dict:
                        f"against {was_flops}, {was_peak} before")
         if shape == "decode_32k" and abs(peak / was_peak - 1) > 0.01:
             bad.append(f"cell {label}: peak {peak} B against {was_peak}")
+        proj_flops, proj_peak = PROJECTION_CELLS[label]
+        cells[-1].update(flops_vs_projections=flops / proj_flops,
+                         peak_vs_projections=peak / proj_peak)
+        if abs(flops / proj_flops - 1) > PROJECTION_CELLS_RTOL or \
+                abs(peak / proj_peak - 1) > PROJECTION_CELLS_RTOL:
+            bad.append(f"cell {label}: {flops} FLOPs, {peak} B peak "
+                       f"against {proj_flops}, {proj_peak} before the "
+                       f"MoE's placements")
         if label in DRYRUN_FLOPS:
             want = DRYRUN_FLOPS[label]
             cells[-1].update(dryrun_flops_torch_2_13=want,
@@ -2524,7 +2673,8 @@ def phase_sharding(card: str, train_out: dict) -> dict:
                            f"on torch 2.13")
     out = {"phase": "sharding", "card": card, "arch": LM_ARCH,
            "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
-           "mesh_step": step, "cells": cells,
+           "mesh_step": step, "cells": cells, "moe_layers": moe_layers,
+           "variant_cells": variant_cells,
            "dryrun_log": {k: v.strip().splitlines()[-1:] for k, v in
                           logs.items() if k in cell_of},
            "seconds": time.perf_counter() - t_phase}

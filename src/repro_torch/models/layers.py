@@ -362,9 +362,20 @@ def _project_local(x, ws, targets):
                      in_placements=(x_pl,) + tuple(r[1] for r in rows),
                      in_grad_placements=(x_grad,) + tuple(r[4] for r in rows),
                      device_mesh=mesh)(
-        x.redistribute(mesh, x_pl),
+        _placed(x, x_pl),
         *(w.redistribute(mesh, r[1]) for w, r in zip(ws, rows)))
     return tuple(o.redistribute(mesh, t) for o, t in zip(outs, targets))
+
+
+def _placed(x, pls):
+    """The DTensor ``x`` on placements ``pls``: ``x`` itself where it is
+    on them already. A redistribute to its own placements would bring a
+    gradient that is a partial sum back to them (an all-reduce); without
+    it the partial sums of every consumer add up and are reduced once,
+    where ``x`` was placed."""
+    if tuple(x.placements) == tuple(pls):
+        return x
+    return x.redistribute(x.device_mesh, pls)
 
 
 def _project_placements(x_pls, w_pls, cols: int, sizes):
@@ -577,10 +588,22 @@ def moe_apply(p, x, cfg):
     gathers, combined by a scatter-add.
 
     Tokens past an expert's capacity fall through the residual.
-    """
-    if cfg.moe_impl == "sort":
-        return _moe_apply_sort(p, x, cfg)
-    return _moe_apply_einsum(p, x, cfg)
+
+    On DTensors (under a mesh) the routed experts run through
+    ``_moe_routed``: each rank dispatches its batch rows to the experts it
+    holds and combines their outputs into a partial sum, which is
+    reduce-scattered to the residual stream. The block input gathered
+    there also feeds the shared experts."""
+    top_p, top_e, cap = _moe_router(p, x, cfg)
+    local = _moe_sort_local if cfg.moe_impl == "sort" else _moe_einsum_local
+    xg = _moe_input(x)
+    out = _moe_routed(functools.partial(local, cap=cap, act=_act(cfg)), xg,
+                      top_p, top_e,
+                      [w.to(x.dtype) for w in (p.w1, p.w3, p.w2)])
+    out = constrain(out, "batch", "resid_seq", "resid_embed")
+    if cfg.n_shared > 0:
+        out = out + mlp_apply(p.shared, xg, cfg)
+    return constrain(out, "batch", "resid_seq", "resid_embed")
 
 
 def _moe_router(p, x, cfg):
@@ -595,38 +618,68 @@ def _moe_router(p, x, cfg):
     return top_p, top_e, cap
 
 
-def _moe_ffn(p, xin, cfg):
-    """xin: (B, E, C, D) -> (B, E, C, D). On DTensors each rank runs its
-    batch rows through its experts (``local_map``; DTensor's einsum
-    backward here views a non-contiguous shard), the experts' weights
-    gathered over their ``fsdp`` dim."""
-    w = [t.to(xin.dtype) for t in (p.w1, p.w3, p.w2)]
-    fn = functools.partial(_expert_ffn, act=_act(cfg))
-    if get_mesh() is None or not hasattr(xin, "placements"):
-        return fn(xin, *w)
+def _moe_input(x):
+    """``x`` (B, S, D) with its batch rows split as the ``batch`` axis
+    splits them and whole on every other mesh dim (d_model gathered), on
+    DTensors; else ``x``."""
+    if get_mesh() is None or not hasattr(x, "placements"):
+        return x
+    return x.redistribute(x.device_mesh, placements(("batch", None, None),
+                                                    x.shape))
+
+
+def _moe_routed(local, x, top_p, top_e, ws):
+    """The routed experts' output (B, S, D): ``local(x, top_p, top_e, w1,
+    w3, w2, lo=0)`` on plain tensors.
+
+    On DTensors ``local`` runs on each rank's shards (``local_map``),
+    placed per mesh dim as the reference's ``constrain``s of the expert
+    buffers place them (``"batch"``, ``"expert"``):
+
+    * a dim that splits the batch rows keeps x, the router's choices and
+      the output split on them and gathers the experts' weights, whose
+      gradients are partial sums;
+    * a dim that splits the experts (E / M each, from expert ``lo``) keeps
+      x and the router's choices whole and the weights split; each rank
+      dispatches to and combines from its own experts only, so the output
+      and the gradients of x and of the gates are partial sums over the
+      dim, the weights' gradients split;
+    * any other dim (where M does not divide E, the rules leave the
+      experts whole) keeps everything whole.
+
+    x is redistributed to these placements unless it is on them already
+    (``_moe_input`` puts it there once for these and the shared
+    experts)."""
+    if get_mesh() is None or not hasattr(x, "placements"):
+        return local(x, top_p, top_e, *ws, lo=0)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    mesh = xin.device_mesh
-    x_pl, w_pl, w_grad = [], [], []
-    for pl in xin.placements:
-        if pl.is_shard(0):                      # batch rows
-            x_pl.append(Shard(0))
+    mesh = x.device_mesh
+    rows = placements(("batch", None, None), x.shape)
+    experts = placements(("expert", None, None), ws[0].shape)
+    x_pl, x_grad, w_pl, w_grad = list(rows), [], [], []
+    for pr, pe in zip(rows, experts):
+        if pr.is_shard(0):
+            x_grad.append(Shard(0))
             w_pl.append(Replicate())
             w_grad.append(Partial())
-        elif pl.is_shard(1):                    # experts
-            x_pl.append(Shard(1))
+        elif pe.is_shard(0):
+            x_grad.append(Partial())
             w_pl.append(Shard(0))
             w_grad.append(Shard(0))
         else:
-            x_pl.append(Replicate())
+            x_grad.append(Replicate())
             w_pl.append(Replicate())
             w_grad.append(Replicate())
-    xin = xin.redistribute(mesh, x_pl)
-    w = [t.redistribute(mesh, w_pl) for t in w]
-    return local_map(fn, out_placements=x_pl,
-                     in_placements=(x_pl, w_pl, w_pl, w_pl),
-                     in_grad_placements=(x_pl, w_grad, w_grad, w_grad),
-                     device_mesh=mesh)(xin, *w)
+    top_p, top_e = (t.redistribute(mesh, x_pl) for t in (top_p, top_e))
+    ws = [w.redistribute(mesh, w_pl) for w in ws]
+    fn = functools.partial(local, lo=_shard_offset(mesh, w_pl, 0,
+                                                   ws[0].shape[0]))
+    return local_map(fn, out_placements=x_grad,
+                     in_placements=(x_pl, x_pl, x_pl) + (w_pl,) * 3,
+                     in_grad_placements=(x_grad, x_grad, x_pl)
+                     + (w_grad,) * 3,
+                     device_mesh=mesh)(_placed(x, x_pl), top_p, top_e, *ws)
 
 
 def _expert_ffn(xin, w1, w3, w2, act):
@@ -635,12 +688,17 @@ def _expert_ffn(xin, w1, w3, w2, act):
     return torch.einsum("becf,efd->becd", hcur, w2)
 
 
-def _moe_apply_sort(p, x, cfg):
+def _moe_sort_local(x, top_p, top_e, w1, w3, w2, *, cap: int, act,
+                    lo: int):
     """Sort-based dispatch, one group a batch row: gathers/scatter-adds
-    instead of one-hot matmuls."""
+    instead of one-hot matmuls, into and out of the buffers of experts
+    ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D)); the
+    sort runs over every expert, so each entry's buffer position is the
+    one it has among all E. Returns these experts' share of the output
+    (B, S, D): all of it where they are all E."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    top_p, top_e, cap = _moe_router(p, x, cfg)
+    k = top_e.shape[-1]
+    n = w1.shape[0]
     flat_e = top_e.reshape(b, s * k)
     flat_tok = torch.arange(s, device=x.device).repeat_interleave(k)
     flat_gate = top_p.reshape(b, s * k)
@@ -651,56 +709,50 @@ def _moe_apply_sort(p, x, cfg):
     # position of each entry within its expert's buffer
     pos = torch.arange(s * k, device=x.device) - torch.searchsorted(
         se, se, side="left")
-    keep = pos < cap
-    dest = torch.where(keep, se * cap + pos, e * cap)         # overflow slot
+    keep = (pos < cap) & (se >= lo) & (se < lo + n)
+    dest = torch.where(keep, (se - lo) * cap + pos, n * cap)   # overflow slot
     keep_x = keep[..., None].to(x.dtype)
     rows = torch.gather(x, 1, st[..., None].expand(b, s * k, d)) * keep_x
-    buf = torch.zeros(b, e * cap + 1, d, dtype=x.dtype, device=x.device)
+    buf = torch.zeros(b, n * cap + 1, d, dtype=x.dtype, device=x.device)
     buf.scatter_(1, dest[..., None].expand(b, s * k, d), rows)
-    xin = buf[:, :-1].reshape(b, e, cap, d)
-    yout = _moe_ffn(p, xin, cfg)                               # (B,E,C,D)
-    ybuf = torch.cat([yout.reshape(b, e * cap, d),
+    xin = buf[:, :-1].reshape(b, n, cap, d)
+    yout = _expert_ffn(xin, w1, w3, w2, act)                   # (B,n,C,D)
+    ybuf = torch.cat([yout.reshape(b, n * cap, d),
                       torch.zeros(b, 1, d, dtype=x.dtype, device=x.device)],
                      dim=1)
     contrib = torch.gather(ybuf, 1, dest[..., None].expand(b, s * k, d)) \
         * (sg[..., None].to(x.dtype) * keep_x)
     out = torch.zeros(b, s, d, dtype=x.dtype, device=x.device)
     out.scatter_add_(1, st[..., None].expand(b, s * k, d), contrib)
-    if cfg.n_shared > 0:
-        out = out + mlp_apply(p.shared, x, cfg)
-    return constrain(out, "batch", "resid_seq", "resid_embed")
+    return out
 
 
-def _moe_apply_einsum(p, x, cfg):
-    """Capacity-based top-k routing with einsum dispatch/combine.
+def _moe_einsum_local(x, top_p, top_e, w1, w3, w2, *, cap: int, act,
+                      lo: int):
+    """Capacity-based top-k routing with einsum dispatch/combine, on
+    experts ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D)):
+    their share of the output (B, S, D), all of it where they are all E.
 
     Tokens grouped by batch row (group = one sequence): capacity
-    C = ceil(S * k / E * capacity_factor).
-    """
-    b, s, d = x.shape
-    e = cfg.n_experts
-    top_p, top_e, cap = _moe_router(p, x, cfg)
-
+    C = ceil(S * k / E * capacity_factor). Each expert's buffer positions
+    depend on its own column of the routing only."""
+    n = w1.shape[0]
     # Position of each (token, choice) in its expert's buffer.
-    onehot = F.one_hot(top_e, e).float()                       # (B,S,k,E)
-    comb = (onehot * top_p[..., None]).sum(2)                  # (B,S,E)
-    mask = onehot.sum(2)                                       # (B,S,E) 0/1
-    pos = torch.cumsum(mask, dim=1) - 1.0                      # (B,S,E)
+    onehot = (top_e[..., None] == torch.arange(
+        lo, lo + n, device=x.device)).float()                  # (B,S,k,n)
+    comb = (onehot * top_p[..., None]).sum(2)                  # (B,S,n)
+    mask = onehot.sum(2)                                       # (B,S,n) 0/1
+    pos = torch.cumsum(mask, dim=1) - 1.0                      # (B,S,n)
     keep = (pos < cap) & (mask > 0)
     # a one-hot row of zeros for pos = -1 or pos >= cap, as jax.nn.one_hot
     pos_oh = (pos.to(torch.int32)[..., None]
               == torch.arange(cap, device=x.device)).to(x.dtype)
-    disp = pos_oh * keep[..., None].to(x.dtype)                # (B,S,E,C)
+    disp = pos_oh * keep[..., None].to(x.dtype)                # (B,S,n,C)
 
-    xin = torch.einsum("bsec,bsd->becd", disp, x)              # (B,E,C,D)
-    xin = constrain(xin, "batch", "expert", None, None)
-    eout = _moe_ffn(p, xin, cfg)
-    eout = constrain(eout, "batch", "expert", None, None)
-    out = torch.einsum("becd,bsec->bsd", eout,
-                       disp * comb.to(x.dtype)[..., None])
-    if cfg.n_shared > 0:
-        out = out + mlp_apply(p.shared, x, cfg)
-    return constrain(out, "batch", "resid_seq", "resid_embed")
+    xin = torch.einsum("bsec,bsd->becd", disp, x)              # (B,n,C,D)
+    eout = _expert_ffn(xin, w1, w3, w2, act)
+    return torch.einsum("becd,bsec->bsd", eout,
+                        disp * comb.to(x.dtype)[..., None])
 
 
 def moe_aux_loss(p, x, cfg):

@@ -245,6 +245,21 @@ def _(x, name):
 
 checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
 
+
+@functools.cache
+def _shard_checkpoint_name() -> None:
+    """Give ``checkpoint_name`` a DTensor rule (once a process): it runs on
+    each rank's shard and keeps the input's placements, so a remat policy
+    still sees the op, with its name, under a mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.checkpoint_name.default)
+    def _identity(x, name):
+        return [([pl], [pl, None]) for pl in
+                [Replicate(), Partial()] + [Shard(d) for d in range(x.ndim)]]
+
+
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 _BLOCK_OUTPUTS = ("attn_out", "ffn_out")
 
@@ -281,7 +296,11 @@ def _remat(blocks, x, policy: str):
         return checkpoint(_superblock, blocks, x, None, use_reentrant=False)
     if policy not in _POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}")
-    tag = checkpoint_name if policy == "blk_out" else None
+    tag = None
+    if policy == "blk_out":
+        tag = checkpoint_name
+        if get_mesh() is not None:
+            _shard_checkpoint_name()
     return checkpoint(_superblock, blocks, x, tag, use_reentrant=False,
                       context_fn=functools.partial(
                           create_selective_checkpoint_contexts,
@@ -416,8 +435,20 @@ class Model(nn.Module):
             for i, block in enumerate(self.blocks):
                 x = block(x, None if cache is None else cache.layers[i],
                           index)
+        # The sequence whole and d_model split ("seq_sp" splits the
+        # sequence between blocks instead): the logits' product flattens
+        # batch and sequence, which DTensor cannot do with the sequence
+        # split on some releases.
+        x = constrain(x, "batch", None, "embed")
         x = rms_norm(x, self.ln_f, upcast=cfg.norm_upcast)
-        logits = x @ self.embed.to(x.dtype).T
+        table = self.embed.to(x.dtype)
+        if hasattr(table, "placements"):
+            # The tied table's gradient from the logits, brought back to
+            # the table's placements here, as the lookup's is (``_lookup``):
+            # the two meet in one add, and DTensor cannot add a partial sum
+            # to a shard on some releases.
+            table = table.redistribute(table.device_mesh, table.placements)
+        logits = x @ table.T
         if cfg.logit_softcap:
             logits = softcap(logits, cfg.logit_softcap)
         if cache is not None:
