@@ -161,7 +161,17 @@ Phases, each printing one JSON line:
                (``MOE_LAYER_FLOPS``), and deepseek-moe's with no product
                over all its E x C expert slots; and the dry run's
                ``remat_names`` (qwen3-0.6b), ``combo`` (deepseek-moe)
-               and ``ssm_mem`` (mamba2) variants ``ok`` at 2 layers. (a)
+               and ``ssm_mem`` (mamba2) variants ``ok`` at 2 layers; the
+               SSD's and the RG-LRU's projections, the router and the
+               tied logits on the reference's shards: in (b) also
+               mamba2's and recurrentgemma's smoke configs against their
+               plain steps, ``torch.equal``; the per-layer tally of
+               mamba2-1.3b's (base, ``zero_r``) and recurrentgemma-9b's
+               (base, ``remat_dots``) ``train_4k`` on (16, 16), one child
+               each, the layer's FLOPs and its 2-layer cell's within 1%
+               of torch 2.13's reading for this tree
+               (``RECURRENT_LAYER_FLOPS``), with no product over a whole
+               dim that the reference splits (``RECURRENT_WHOLE``). (a)
                to (d) run side by side;
  13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
                chaos}_smoke.py`` on the card, one child each (servers in
@@ -2282,7 +2292,9 @@ PROJECTION_CELLS_RTOL = 0.01
 SHARDING_CONFIGS = {"deepseek_moe_sort": ("deepseek-moe-16b",
                                           {"moe_impl": "sort"}),
                     "qwen3_blk_out": ("qwen3-0.6b",
-                                      {"remat_policy": "blk_out"})}
+                                      {"remat_policy": "blk_out"}),
+                    "mamba2": ("mamba2-1.3b", {}),
+                    "recurrentgemma": ("recurrentgemma-9b", {})}
 # (d): one MoE layer's per-device FLOPs of train_4k on (16, 16) (2 layers'
 # tally minus 1's; deepseek-moe's first layer is dense) as torch 2.13
 # reads them for this tree, each equal to the count of the reference's
@@ -2297,6 +2309,25 @@ MOE_LAYER_RTOL = 0.01
 # parent tree's combine ran deepseek-moe's 64 x 480 slots on every rank.
 # (dbrx's 16 x 1280 equals its rank's batch rows x C, so not checked.)
 MOE_WHOLE_SLOTS = {"deepseek-moe-16b": 64 * 480}
+# (d): one recurrent layer's per-device FLOPs of train_4k on (16, 16) (2
+# layers' tally minus 1's) and the 2-layer cell's, as torch 2.13 reads them
+# for this tree (the layer's equal to the count of the reference's
+# placements, ``tests/test_torch_sharded_recurrent.py::
+# reference_layer_flops``); keyed "arch" or "arch/variant". Before the
+# SSD's and RG-LRU's placements were stated the card's torch read
+# recurrentgemma's 2-layer cell at 1.202x and mamba2's zero_r at 2.006x
+# its base cell.
+RECURRENT_LAYER_FLOPS = {
+    "mamba2-1.3b": (863_288_426_496, 4_257_252_114_432),
+    "mamba2-1.3b/zero_r": (863_288_426_496, 4_257_252_114_432),
+    "recurrentgemma-9b": (7_696_581_394_432, 40_750_649_704_448),
+    "recurrentgemma-9b/remat_dots": (5_772_436_045_824, 37_314_675_867_648)}
+RECURRENT_LAYER_RTOL = 0.01
+# Operands that span a dim the reference splits: mamba2's whole in_proj
+# width (8,512) or d_inner (4,096); a whole d_model x rnn_width block of
+# recurrentgemma's (its d_model is 4,096 too, so only the pair).
+RECURRENT_WHOLE = {"mamba2-1.3b": {"dims": (8512, 4096)},
+                   "recurrentgemma-9b": {"shapes": ((4096, 4096),)}}
 # (d): dry-run variants that must run ok at 2 layers (on torch 2.11 the
 # last two raised at the logits and at the tied table's gradient before).
 SHARDING_VARIANT_CELLS = (("qwen3-0.6b", "remat_names"),
@@ -2464,14 +2495,17 @@ def _wait(proc: subprocess.Popen, label: str, timeout: float) -> str:
 
 def _sharding_scripts() -> dict:
     """(d)'s children: ``{label: argv}`` of the repository's scripts, the
-    per-layer tallies of MOE_LAYER_FLOPS and the variant cells."""
+    per-layer tallies of MOE_LAYER_FLOPS and RECURRENT_LAYER_FLOPS and the
+    variant cells."""
     script = {}
-    for key in MOE_LAYER_FLOPS:
-        arch, _, variant = key.partition("/")
-        script[f"layer {key}"] = [
-            "scripts/torch_dryrun_flops.py", "--arch", arch, "--shape",
-            "train_4k", "--per-layer", "--top", "1000"] + (
-            ["--variant", variant] if variant else [])
+    for kind, keys in (("layer", MOE_LAYER_FLOPS),
+                       ("recurrent", RECURRENT_LAYER_FLOPS)):
+        for key in keys:
+            arch, _, variant = key.partition("/")
+            script[f"{kind} {key}"] = [
+                "scripts/torch_dryrun_flops.py", "--arch", arch, "--shape",
+                "train_4k", "--per-layer", "--top", "1000"] + (
+                ["--variant", variant] if variant else [])
     for arch, variant in SHARDING_VARIANT_CELLS:
         script[f"variant {arch}/{variant}"] = [
             "scripts/torch_dryrun_sweep.py", "--arch", arch, "--shape",
@@ -2480,16 +2514,61 @@ def _sharding_scripts() -> dict:
     return script
 
 
-def _sharding_moe(logs: dict, out_dir: Path, bad: list) -> tuple:
+def _tally_shapes(key: str) -> list:
+    """The operand shapes of a tally key ``"op ((a, b), (c, d))"``."""
+    return [tuple(s) for s in json.loads(
+        key.split(" ", 1)[1].replace("(", "[").replace(")", "]")
+        .replace(",]", "]"))]
+
+
+def _sharding_recurrent(key: str, rec: dict, bad: list) -> dict:
+    """(d)'s record of one recurrent layer's tally ``rec``; failed checks
+    appended to ``bad``."""
+    if not rec.get("ok"):
+        bad.append(f"recurrent layer {key} failed: {rec.get('error')}")
+        return {"layer": key, "ok": False, "error": rec.get("error")}
+    want, want_cell = RECURRENT_LAYER_FLOPS[key]
+    whole = RECURRENT_WHOLE[key.partition("/")[0]]
+    wide = [k for k in rec["by_op"] if any(
+        set(whole.get("dims", ())) & set(s) or s in whole.get("shapes", ())
+        for s in _tally_shapes(k))]
+    cell = rec["cell"]["flops"]
+    out = {"layer": key, "ok": True, "flops_per_device": rec["flops"],
+           "flops_torch_2_13": want,
+           "flops_vs_torch_2_13": rec["flops"] / want,
+           "cell_flops_per_device": cell, "cell_flops_torch_2_13": want_cell,
+           "cell_flops_vs_torch_2_13": cell / want_cell,
+           "cell_peak_bytes": rec["cell"]["peak_bytes"],
+           "cell_wire_bytes_by_kind": rec["cell"]["wire_bytes"],
+           "peak_bytes": rec["peak_bytes"],
+           "wire_bytes_by_kind": rec["wire_bytes"],
+           "whole_dim_products": wide,
+           "top": dict(list(rec["by_op"].items())[:4])}
+    if abs(rec["flops"] / want - 1) > RECURRENT_LAYER_RTOL:
+        bad.append(f"recurrent layer {key}: {rec['flops']} FLOPs against "
+                   f"{want} on torch 2.13")
+    if abs(cell / want_cell - 1) > RECURRENT_LAYER_RTOL:
+        bad.append(f"recurrent cell {key}: {cell} FLOPs against "
+                   f"{want_cell} on torch 2.13")
+    if wide:
+        bad.append(f"recurrent layer {key} multiplies a whole dim that the "
+                   f"reference splits: {wide}")
+    return out
+
+
+def _sharding_layers(logs: dict, out_dir: Path, bad: list) -> tuple:
     """(d)'s records from the children's output (``logs`` by label), each
     also written to ``out_dir``; failed checks appended to ``bad``.
-    Returns (MoE layers, variant cells)."""
-    moe_layers, variant_cells = [], []
+    Returns (MoE layers, recurrent layers, variant cells)."""
+    moe_layers, recurrent_layers, variant_cells = [], [], []
     for label in _sharding_scripts():
         rec = json.loads(logs[label].strip().splitlines()[-1])
         (out_dir / (label.replace(" ", "_").replace("/", "__")
                     + ".json")).write_text(json.dumps(rec))
         kind, key = label.split(" ")
+        if kind == "recurrent":
+            recurrent_layers.append(_sharding_recurrent(key, rec, bad))
+            continue
         if kind == "variant":
             variant_cells.append({"cell": key, "ok": rec.get("ok"),
                                   "error": rec.get("error"),
@@ -2523,7 +2602,7 @@ def _sharding_moe(logs: dict, out_dir: Path, bad: list) -> tuple:
         if whole:
             bad.append(f"MoE layer {key} multiplies all {slots} expert "
                        f"slots: {whole}")
-    return moe_layers, variant_cells
+    return moe_layers, recurrent_layers, variant_cells
 
 
 def phase_sharding(card: str, train_out: dict) -> dict:
@@ -2531,9 +2610,9 @@ def phase_sharding(card: str, train_out: dict) -> dict:
     measurement; (b) the step on a (1, 1) mesh, DTensors on the card,
     against the plain step; (c) qwen3-0.6b's reference cells dry-run on
     the production meshes (256 and 512 fake ranks) and the roofline suite
-    on them; (d) the MoE layers' per-device tallies and the MoE and remat
-    variants on (16, 16). Every part runs in child processes side by
-    side."""
+    on them; (d) the MoE and recurrent layers' per-device tallies and the
+    MoE and remat variants on (16, 16). Every part runs in child processes
+    side by side."""
     import os
     import socket
     from repro_torch.bench import run as bench_run
@@ -2618,7 +2697,8 @@ def phase_sharding(card: str, train_out: dict) -> dict:
         if pair["mesh"]["param_types"] != ["DTensor"]:
             bad.append(f"{name}: mesh parameters are "
                        f"{pair['mesh']['param_types']}")
-    moe_layers, variant_cells = _sharding_moe(logs, out_dir, bad)
+    moe_layers, recurrent_layers, variant_cells = _sharding_layers(
+        logs, out_dir, bad)
     if bench_run.main(["--only", "roofline", "--out",
                        str(OUT_DIR / "bench")]) != 0:
         bad.append("the roofline suite failed")
@@ -2674,6 +2754,7 @@ def phase_sharding(card: str, train_out: dict) -> dict:
     out = {"phase": "sharding", "card": card, "arch": LM_ARCH,
            "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
            "mesh_step": step, "cells": cells, "moe_layers": moe_layers,
+           "recurrent_layers": recurrent_layers,
            "variant_cells": variant_cells,
            "dryrun_log": {k: v.strip().splitlines()[-1:] for k, v in
                           logs.items() if k in cell_of},

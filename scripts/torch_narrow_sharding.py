@@ -1,0 +1,197 @@
+"""The sharded step's recurrent layers, router and tied logits at a narrow
+width on the port: per-device matmul FLOPs and peak bytes of each product
+group under a (data 2, model 4) mesh of fake ranks.
+
+    PYTHONPATH=src python scripts/torch_narrow_sharding.py [--out FILE]
+
+For every case (``LAYERS`` x ``RULES`` x ``WRT``) it prints one JSON line:
+the port's matmul FLOPs on a fake 8-rank mesh under the dry run's
+``DeviceCost`` (all, and those of 2-D products), and the peak of the
+bytes it allocates plus its inputs' local shards; then the FLOPs of the
+products of the tied table in mamba2-1.3b's one-layer ``train_4k`` dry
+run on (16, 16) under each rule set (``head_full_port``).
+``tests/test_torch_sharded_recurrent.py`` holds these against the
+reference's compiled HLO; run as a script it prints both side by side.
+
+Layers: mamba2's SSD (d_model 128, expand 2, head_dim 16, state 16, chunk
+16: 16 heads, an in_proj of 560 = 4 x 140 columns, cut at z, xBC and dt
+off the 140-column edges, as the full width's 8,512 are off its 532);
+recurrentgemma's RG-LRU (d_model and rnn_width 128); dbrx's router (8
+experts); the tied head (final norm, logits, the loss's logsumexp and
+gold logit) with a vocab of 512, which ``model`` divides, and of 514,
+which it does not. Each under the base rules and the ``zero_r`` and
+``seq_sp`` variants; the gradient of the parameters, and of the
+parameters and the input. It needs only torch.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+from pathlib import Path
+
+MESH = (2, 4)
+BATCH, SEQ = 4, 64
+LAYERS = ("ssm", "rec", "router", "head512", "head514")
+RESID = ("batch", "resid_seq", "resid_embed")
+RULES = ("base", "zero_r", "seq_sp")
+WRT = ("params", "params_x")
+
+# Narrow configs: (architecture, overrides); a head's vocab is its name's.
+NARROW = {
+    "ssm": ("mamba2-1.3b", dict(d_model=128, ssm_expand=2, ssm_head_dim=16,
+                                ssm_state=16, ssm_chunk=16)),
+    "rec": ("recurrentgemma-9b", dict(d_model=128, rnn_width=128)),
+    "router": ("dbrx-132b", dict(d_model=128, n_experts=8, top_k=2,
+                                 d_ff_expert=64)),
+    "head": ("mamba2-1.3b", dict(d_model=128)),
+}
+
+
+
+def cases():
+    return [(layer, rules, wrt) for layer in LAYERS for rules in RULES
+            for wrt in WRT]
+
+
+def narrow_cfg(layer: str):
+    from repro_torch.configs import get_config
+    arch, over = NARROW[layer.rstrip("0123456789")]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+    if layer.startswith("head"):
+        cfg = dataclasses.replace(cfg, vocab=int(layer[4:]))
+    return cfg
+
+
+def _module(layer: str, cfg):
+    """(module on the meta device, its parameters' logical axes, the
+    loss of the module and the input, the input's logical axes)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.sharding import constrain
+    if layer == "ssm":
+        return (L.SSM(cfg, device="meta", dtype=torch.float32), L.ssm_axes(),
+                lambda p, x: (constrain(L.ssm_apply(p, x, cfg)[0], *RESID)
+                              ** 2).sum(), ("batch", None, "blk_in_embed"))
+    if layer == "rec":
+        return (L.RGLRU(cfg, device="meta", dtype=torch.float32),
+                L.rglru_axes(),
+                lambda p, x: (constrain(L.rglru_apply(p, x, cfg)[0],
+                                        *RESID) ** 2).sum(),
+                ("batch", None, "blk_in_embed"))
+    module = torch.nn.Module()
+    if layer == "router":
+        module.router = torch.nn.Parameter(torch.empty(
+            cfg.d_model, cfg.n_experts, device="meta"))
+        return (module, {"router": L.moe_axes(cfg)["router"]},
+                lambda p, x: (L._moe_router(p, x, cfg)[0] ** 2).sum(),
+                ("batch", None, "blk_in_embed"))
+    module.embed = torch.nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
+                                                  device="meta"))
+    module.ln_f = torch.nn.Parameter(torch.empty(cfg.d_model, device="meta"))
+
+    def loss(p, x):
+        from repro_torch.launch import dryrun as D
+        labels = D._dtensor(torch.empty(BATCH, SEQ, dtype=torch.long,
+                                        device="meta"), ("batch", None),
+                            x.device_mesh)
+        logits = M.head_apply(x, p.ln_f, p.embed, cfg).float()
+        return M._nll(logits, labels).sum() / (BATCH * SEQ)
+    return (module, {"embed": ("vocab", "fsdp"), "ln_f": (None,)}, loss,
+            RESID)
+
+
+def port(layer: str, rules_name: str, wrt: str) -> dict:
+    """Rank 0's matmul FLOPs (all, and those of 2-D products) and peak
+    bytes of one case on a fake 8-rank (2, 4) mesh, the parameters and
+    the input DTensors of fake shards."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import replicate_plain, set_mesh
+    cfg = narrow_cfg(layer)
+    module, axes, loss, x_axes = _module(layer, cfg)
+    two_d = collections.Counter()
+    dispatch = D.DeviceCost.__torch_dispatch__
+
+    def counting(self, func, types, args=(), kwargs=None):
+        before = self.flops
+        out = dispatch(self, func, types, args, kwargs)
+        if func._overloadpacket is torch.ops.aten.mm:
+            two_d["mm"] += self.flops - before
+        return out
+
+    D.DeviceCost.__torch_dispatch__ = counting
+    try:
+        with D.fake_world(MESH[0] * MESH[1]):
+            mesh = make_mesh(MESH, ("data", "model"))
+            rules = D.arch_rules(cfg, MESH[1])
+            if rules_name != "base":
+                rules.update(D.VARIANTS[rules_name]["rules"])
+            set_mesh(mesh, rules)
+            try:
+                with FakeTensorMode(allow_non_fake_inputs=True):
+                    for n, p in list(module.named_parameters()):
+                        module._parameters[n] = torch.nn.Parameter(
+                            D._dtensor(p, axes[n], mesh))
+                    x = D._dtensor(torch.empty(BATCH, SEQ, cfg.d_model,
+                                               device="meta"), x_axes, mesh)
+                    x.requires_grad_(wrt == "params_x")
+                cost = D.DeviceCost()
+                inputs = list(module.parameters()) + [x]
+                wrt_ = inputs if wrt == "params_x" else inputs[:-1]
+                with cost, replicate_plain():
+                    torch.autograd.grad(loss(module, x), wrt_)
+            finally:
+                set_mesh(None)
+    finally:
+        D.DeviceCost.__torch_dispatch__ = dispatch
+    held = sum(D._nbytes(D._local(t)) for t in inputs)
+    return {"flops": cost.flops, "mm": two_d["mm"],
+            "peak_bytes": cost.peak + held}
+
+
+def head_full_port(rules_name: str) -> int:
+    """The port's per-device FLOPs of the products that involve the tied
+    table in mamba2-1.3b's train_4k dry run on (16, 16) cut to one layer
+    (``rules_name`` a variant of ``dryrun.VARIANTS`` or ``"base"``): the
+    logits and their gradients, read off the dry run's tally."""
+    import importlib.util
+    from repro_torch.configs import get_config
+    spec = importlib.util.spec_from_file_location(
+        "torch_dryrun_flops",
+        Path(__file__).with_name("torch_dryrun_flops.py"))
+    flops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flops)
+    res, counts = flops.tally("mamba2-1.3b", "train_4k", False, 1,
+                              None if rules_name == "base" else rules_name)
+    if not res.get("ok"):
+        raise RuntimeError(res.get("error"))
+    vocab = str(get_config("mamba2-1.3b").vocab)
+    return int(sum(n for key, n in counts.items()
+                   if vocab in key.replace("(", " ").replace(")", " ")
+                   .replace(",", " ").split()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args(argv)
+    import torch
+    torch.set_num_threads(1)
+    lines = [json.dumps({"case": "/".join(c), "torch": torch.__version__,
+                         **port(*c)}) for c in cases()]
+    lines += [json.dumps({"case": f"full/mamba2-1.3b/{rules}",
+                          "torch": torch.__version__,
+                          "flops": head_full_port(rules)}) for rules in RULES]
+    print("\n".join(lines))
+    if args.out:
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,6 +43,10 @@ def _act(cfg):
     return gelu if cfg.mlp_act == "gelu" else silu
 
 
+# The residual stream's logical axes, where the layers' outputs go.
+RESID = ("batch", "resid_seq", "resid_embed")
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA/MQA, optional qk-norm / soft-capping / local window)
 # ---------------------------------------------------------------------------
@@ -321,7 +325,8 @@ def attention_apply(p, x, cfg, *, local: bool, cache=None, cache_index=None):
     return constrain(out, "batch", "resid_seq", "resid_embed")
 
 
-def _project(x, ws, out_axes, n_in: int = 1):
+def _project(x, ws, out_axes, n_in: int = 1, split_cols: bool = True,
+             logits: bool = False):
     """``x`` (B, S, *c) times each weight of ``ws`` (*c, *n), contracted
     over c (``x``'s last ``n_in`` dims) in one 2-D product: a list of
     (B, S, *n), one a weight, whose logical axes ``out_axes`` lists.
@@ -332,33 +337,70 @@ def _project(x, ws, out_axes, n_in: int = 1):
     DTensor's strategies, x redistributed once for all of ``ws``. Each
     product is then redistributed to its axes (split columns gathered,
     partial sums reduce-scattered or all-reduced), and every input's
-    gradient comes back in the input's own placements."""
+    gradient comes back in the input's own placements. ``split_cols``
+    False keeps a weight's columns whole where its placements leave them
+    whole (the router's, as the reference does). ``logits`` marks the
+    tied logits' product: a split sequence of x is gathered, as the
+    reference gathers it there, and x is gathered inside the product
+    where a mesh dim wider than one splits it, only its shard kept for
+    the backward pass, which gathers it again (outside the remat a
+    gathered x would stay live until the loss's backward pass)."""
     b, s = x.shape[:2]
     shapes = [w.shape[n_in:] for w in ws]
-    flat = [w if w.dim() == 2 else w.reshape(math.prod(w.shape[:n_in]), -1)
-            for w in ws]
+    flat = [w if w.dim() == 2 else _single_whole(w).reshape(
+        math.prod(w.shape[:n_in]), -1) for w in ws]
     if get_mesh() is None or not hasattr(x, "placements"):
         outs = _matmuls(x, *flat)
     else:
         outs = _project_local(x, flat, [
-            placements(ax, (b, s, *n)) for ax, n in zip(out_axes, shapes)])
+            placements(ax, (b, s, *n)) for ax, n in zip(out_axes, shapes)],
+            split_cols, logits)
     return [o if len(n) == 1 else o.view(b, s, *n)
             for o, n in zip(outs, shapes)]
 
 
-def _project_local(x, ws, targets):
+def _single_whole(w):
+    """``w``, on DTensors whole on every mesh dim of size 1: a DTensor's
+    view cannot merge a sharded dim of size 1 (one kv head's on a one-wide
+    mesh dim), and there a split is the whole tensor anyway."""
+    if not hasattr(w, "placements"):
+        return w
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    return _placed(w, [Replicate() if mesh.size(i) == 1 else pl
+                       for i, pl in enumerate(w.placements)])
+
+
+def _project_local(x, ws, targets, split_cols: bool = True,
+                   logits: bool = False):
     """``_project``'s products on DTensors: ``x`` (B, S, *c) times the 2-D
     weights ``ws``, each product brought to its placements in
-    ``targets``."""
+    ``targets``. For the ``logits``, ``_gathered_matmuls`` gathers x
+    inside the product wherever a mesh dim wider than one splits it and
+    the product wants it whole or gathered along the sequence."""
+    from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
     rows = [_project_placements(x.placements, w.placements, w.shape[1],
-                                mesh.shape) for w in ws]
+                                mesh.shape, split_cols, logits) for w in ws]
     if any(r[0] != rows[0][0] for r in rows):   # x placed otherwise: apart
         return tuple(o for w, t in zip(ws, targets)
-                     for o in _project_local(x, [w], [t]))
+                     for o in _project_local(x, [w], [t], split_cols,
+                                             logits))
     x_pl, _, _, x_grad, _ = rows[0]
-    outs = local_map(_matmuls, out_placements=tuple(r[2] for r in rows),
+    fn = _matmuls
+    for i, (now, want) in enumerate(zip(x.placements, x_pl)):
+        whole = want.is_shard(1)       # the sequence gathered, products whole
+        if logits and (whole or (mesh.size(i) > 1 and
+                                 isinstance(now, Shard) and now.dim > 0 and
+                                 not want.is_shard())):
+            fn = functools.partial(
+                _gathered_matmuls, group=mesh.get_group(i), dim=now.dim,
+                lo=mesh.get_local_rank(i) * (x.shape[now.dim] // mesh.size(i)),
+                whole=whole)
+            x_pl, x_grad = list(x_pl), list(x_grad)
+            x_pl[i] = x_grad[i] = now
+    outs = local_map(fn, out_placements=tuple(r[2] for r in rows),
                      in_placements=(x_pl,) + tuple(r[1] for r in rows),
                      in_grad_placements=(x_grad,) + tuple(r[4] for r in rows),
                      device_mesh=mesh)(
@@ -378,33 +420,45 @@ def _placed(x, pls):
     return x.redistribute(x.device_mesh, pls)
 
 
-def _project_placements(x_pls, w_pls, cols: int, sizes):
+def _project_placements(x_pls, w_pls, cols: int, sizes,
+                        split_cols: bool = True, gather_seq: bool = False):
     """The placements of one of ``_project``'s products on each mesh dim
     (of sizes ``sizes``): (x, the 2-D weight, the (B, S, N) product, x's
     gradient, the weight's gradient), each a list over the mesh dims.
 
-    * A dim that splits x's tokens (batch) keeps them split and gathers
-      the weight; the weight's gradients are partial sums.
+    * A dim that splits x's tokens (batch, or sequence without
+      ``gather_seq``) keeps them split and gathers the weight; the
+      weight's gradients are partial sums.
     * Column parallel: where the dim splits the weight's columns (q on
-      ``heads``, ``w1``/``w3`` on ``tensor``), or the weight is whole on
-      it and its columns divide evenly (K/V whose heads the dim does not
-      divide; their products are gathered whole after), x is gathered
+      ``heads``, ``w1``/``w3`` on ``tensor``, the tied logits on
+      ``vocab``), or the weight is whole on it and its columns divide
+      evenly (K/V whose heads the dim does not divide; their products are
+      gathered whole after; not with ``split_cols`` False), x is gathered
       and each rank multiplies its columns; x's gradients are partial
       sums.
+    * With ``gather_seq`` (the logits under ``seq_sp``), a dim that
+      splits x's sequence and not the weight: x is gathered and each rank
+      computes the whole product; in the backward pass x's gradient and
+      the weight's (a partial sum) from its own tokens only
+      (``_gathered_matmuls``; x's placements there are its own), as the
+      reference's partitioned HLO does at full width.
     * Row parallel: where the dim splits the weight's rows (``wo`` on
       ``heads``, ``w2`` on ``tensor``), or x's first contracted dim while
-      the weight is whole with columns that do not divide, x and the rows
-      split alike and the products are partial sums.
+      the weight's columns stay whole, x and the rows split alike and the
+      products are partial sums.
     * Else both are whole."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     rows = []
     for px, pw, size in zip(x_pls, w_pls, sizes):
-        if isinstance(px, Shard) and px.dim < 2:
+        if px.is_shard(0) or (px.is_shard(1) and not gather_seq):
             rows.append((px, Replicate(), px, px, Partial()))
-        elif pw.is_shard(1) or (not pw.is_shard() and cols % size == 0):
+        elif pw.is_shard(1) or (split_cols and not pw.is_shard()
+                                and cols % size == 0):
             rows.append((Replicate(), Shard(1), Shard(2), Partial(),
                          Shard(1)))
-        elif pw.is_shard(0) or (isinstance(px, Shard) and px.dim == 2):
+        elif px.is_shard(1):
+            rows.append((px, Replicate(), Replicate(), px, Partial()))
+        elif pw.is_shard(0) or px.is_shard(2):
             rows.append((Shard(2), Shard(0), Partial(), Shard(2), Shard(0)))
         else:
             rows.append((Replicate(),) * 5)
@@ -417,6 +471,51 @@ def _matmuls(x, *ws):
     if x.dim() > 3:
         x = x.flatten(2)
     return tuple(x @ w for w in ws)
+
+
+def _gathered_matmuls(x, *ws, group, dim: int, lo: int, whole: bool):
+    """``_matmuls`` of ``x`` (B, S, c) gathered along ``dim`` over
+    ``group`` (this rank's shard starts at ``lo``): the sequence (1) or
+    the contracted d_model (2). Only x's shard is kept for the backward
+    pass. With ``whole`` products (the weights whole, the sequence
+    gathered) the gradients come from this rank's tokens only, the
+    weights' partial sums; else (each rank's columns) x is gathered again
+    for the weights' gradients, and x's partial sums are reduce-scattered
+    along ``dim``."""
+    return _GatheredMatmuls.apply(x, group, dim, lo, whole, *ws)
+
+
+def _gather(x, dim: int, group):
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    return funcol.wait_tensor(gather(x, dim, group))
+
+
+class _GatheredMatmuls(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, lo, whole, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.group, ctx.dim, ctx.lo, ctx.whole = group, dim, lo, whole
+        return _matmuls(_gather(x, dim, group), *ws)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed import _functional_collectives as funcol
+        x, *ws = ctx.saved_tensors
+        if ctx.whole:
+            grads = [g[:, ctx.lo:ctx.lo + x.shape[1]] for g in grads]
+            rows = x.flatten(0, 1)
+            dx = sum(g @ w.T for g, w in zip(grads, ws))
+        else:
+            rows = _gather(x, ctx.dim, ctx.group).flatten(0, 1)
+            scatter = getattr(funcol, "reduce_scatter_single", None) or \
+                funcol.reduce_scatter_tensor
+            dx = funcol.wait_tensor(scatter(
+                sum(g @ w.T for g, w in zip(grads, ws)), "sum", ctx.dim,
+                ctx.group))
+        return (dx, None, None, None, None,
+                *(rows.T @ g.flatten(0, 1) for g in grads))
 
 
 def _ring_write(cache: dict, slot: int, k, v, positions,
@@ -611,7 +710,10 @@ def _moe_router(p, x, cfg):
     e, k = cfg.n_experts, cfg.top_k
     cap = int(math.ceil(s * k / e * cfg.capacity_factor))
     cap = min(max(cap, 4), s)
-    logits = x.float() @ p.router.float()
+    # Under a mesh the reference keeps the router's columns whole: a
+    # partial sum over x's split d_model, all-reduced.
+    (logits,) = _project(x.float(), [p.router.float()],
+                         [("batch", None, None)], split_cols=False)
     probs = torch.softmax(logits, dim=-1)                      # (B,S,E)
     top_p, top_e = torch.topk(probs, k, dim=-1)                # (B,S,k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -916,12 +1018,17 @@ def ssm_apply(p, x, cfg, state=None, conv_carry=None):
     n = cfg.ssm_state
     f32 = torch.float32
 
-    zxbcdt = x @ p.in_proj.to(x.dtype)
-    z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din:din + din + 2 * n]
-    dt = zxbcdt[..., -nh:]
+    # Under a mesh: in_proj column parallel, its product gathered whole
+    # (no slice of split columns) and z, xBC and dt each split evenly over
+    # ``tensor``, as the reference places them; the conv on xBC's split,
+    # then xBC gathered: xs split by heads, B and C whole.
+    (zxbcdt,) = _project(x, [p.in_proj.to(x.dtype)], [("batch", None, None)])
+    split = ("batch", None, "tensor")
+    z = constrain(zxbcdt[..., :din], *split)
+    xbc = constrain(zxbcdt[..., din:din + din + 2 * n], *split)
+    dt = constrain(zxbcdt[..., -nh:], *split)
     xbc, new_conv = _causal_conv(xbc, p.conv_w, conv_carry)
-    xbc = silu(xbc)
+    xbc = constrain(silu(xbc), "batch", None, None)
     xs = xbc[..., :din].reshape(b, s, nh, hd)
     xs = constrain(xs, "batch", None, "tensor", None)
     bmat = xbc[..., din:din + n]                       # (B,S,N) single group
@@ -941,7 +1048,8 @@ def ssm_apply(p, x, cfg, state=None, conv_carry=None):
         y = y + p.D[None, :, None] * xs1.float()
         y = y.reshape(b, 1, din).to(x.dtype)
         y = y * silu(z)
-        return y @ p.out_proj.to(x.dtype), (new_state, new_conv)
+        (out,) = _project(y, [p.out_proj.to(x.dtype)], [RESID])
+        return out, (new_state, new_conv)
 
     q = min(cfg.ssm_chunk, s)
     if s % q != 0:  # ragged (smoke-test) sizes: single chunk
@@ -953,7 +1061,8 @@ def ssm_apply(p, x, cfg, state=None, conv_carry=None):
     y = y.reshape(b, s, din).to(x.dtype)
     y = y * silu(z)
     y = constrain(y, "batch", None, "tensor")
-    return y @ p.out_proj.to(x.dtype), (h, new_conv)
+    (out,) = _project(y, [p.out_proj.to(x.dtype)], [RESID])
+    return out, (h, new_conv)
 
 
 def ssm_cache_axes():
@@ -1051,13 +1160,17 @@ def rglru_apply(p, x, cfg, state=None, conv_carry=None):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
     a_t = exp(-c * softplus(Λ) * r_t).
     """
-    xb = x @ p.in_x.to(x.dtype)
-    gate = x @ p.in_gate.to(x.dtype)
+    split = ("batch", None, "tensor")
+    xb, gate = _project(x, [p.in_x.to(x.dtype), p.in_gate.to(x.dtype)],
+                        [split, split])
     xb, new_conv = _causal_conv(xb, p.conv_w, conv_carry)
-    xb = constrain(xb, "batch", None, "tensor")
+    xb = constrain(xb, *split)
 
-    r = sigmoid((xb @ p.w_rec_gate.to(xb.dtype)).float())
-    i = sigmoid((xb @ p.w_input_gate.to(xb.dtype)).float())
+    # Under a mesh xb is gathered and each rank computes its columns of
+    # the gates, split as xb is (``_project``), as the reference does.
+    r, i = _project(xb, [p.w_rec_gate.to(xb.dtype),
+                         p.w_input_gate.to(xb.dtype)], [split, split])
+    r, i = sigmoid(r.float()), sigmoid(i.float())
     log_a = -_RG_C * softplus(p.lam)[None, None] * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xb.float())
@@ -1072,8 +1185,9 @@ def rglru_apply(p, x, cfg, state=None, conv_carry=None):
         _, y = _linear_scan(a, gated)
         new_state = y[:, -1]
     y = y.to(x.dtype) * gelu(gate)
-    y = constrain(y, "batch", None, "tensor")
-    return y @ p.out_proj.to(x.dtype), (new_state, new_conv)
+    y = constrain(y, *split)
+    (out,) = _project(y, [p.out_proj.to(x.dtype)], [RESID])
+    return out, (new_state, new_conv)
 
 
 def rglru_cache_axes():

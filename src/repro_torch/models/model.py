@@ -435,25 +435,30 @@ class Model(nn.Module):
             for i, block in enumerate(self.blocks):
                 x = block(x, None if cache is None else cache.layers[i],
                           index)
-        # The sequence whole and d_model split ("seq_sp" splits the
-        # sequence between blocks instead): the logits' product flattens
-        # batch and sequence, which DTensor cannot do with the sequence
-        # split on some releases.
-        x = constrain(x, "batch", None, "embed")
-        x = rms_norm(x, self.ln_f, upcast=cfg.norm_upcast)
-        table = self.embed.to(x.dtype)
-        if hasattr(table, "placements"):
-            # The tied table's gradient from the logits, brought back to
-            # the table's placements here, as the lookup's is (``_lookup``):
-            # the two meet in one add, and DTensor cannot add a partial sum
-            # to a shard on some releases.
-            table = table.redistribute(table.device_mesh, table.placements)
-        logits = x @ table.T
-        if cfg.logit_softcap:
-            logits = softcap(logits, cfg.logit_softcap)
+        logits = head_apply(x, self.ln_f, self.embed, cfg)
         if cache is not None:
             cache.index += x.shape[1]
-        return constrain(logits, "batch", None, "vocab")
+        return logits
+
+
+def head_apply(x, ln_f, embed, cfg):
+    """The tied head: the final norm of the residual stream ``x`` (B, S,
+    D) and its logits (B, S, V) against the embedding table ``embed`` (V,
+    D), cast to x's dtype.
+
+    Under a mesh the product is placed as the reference places it
+    (``layers._project``): where ``model`` divides the vocab, vocab
+    parallel on the gathered x; where it does not, a partial sum over x's
+    split d_model, all-reduced, or (the sequence split, ``seq_sp``) the
+    whole product on each rank from the gathered sequence. The table's
+    gradient comes back on the table's placements, where the lookup's
+    (``_lookup``) meets it."""
+    x = rms_norm(x, ln_f, upcast=cfg.norm_upcast)
+    (logits,) = L._project(x, [embed.to(x.dtype).T],
+                           [("batch", None, "vocab")], logits=True)
+    if cfg.logit_softcap:
+        logits = softcap(logits, cfg.logit_softcap)
+    return constrain(logits, "batch", None, "vocab")
 
 
 def init_params(cfg: ModelConfig, generator=None, device=None,
@@ -556,27 +561,33 @@ class _ShardedNLL(torch.autograd.Function):
 
 
 def _nll(logits, labels):
-    """Per-token ``logsumexp - gold`` of f32 logits. Vocab-sharded
-    DTensor logits stay sharded (``_ShardedNLL`` on each rank's slice,
-    ``local_map``), as the reference's sharded logsumexp does."""
+    """Per-token ``logsumexp - gold`` of f32 logits. On DTensors each rank
+    runs it on its shards (``local_map``): vocab-sharded logits stay
+    sharded (``_ShardedNLL`` on each rank's slice), as the reference's
+    sharded logsumexp does; logits whole on the vocab run the plain ops on
+    each rank's rows (DTensor's strategy for the gold gather's backward
+    builds the global batch's logits on some releases)."""
     mesh = get_mesh()
-    vocab_dims = [] if mesh is None or not hasattr(logits, "placements") \
-        else [i for i, pl in enumerate(logits.placements)
-              if pl.is_shard(logits.ndim - 1)]
-    if not vocab_dims:
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        return lse - gold
+    if mesh is None or not hasattr(logits, "placements"):
+        return _nll_plain(logits, labels)
     from torch.distributed.tensor.experimental import local_map
-    (dim,) = vocab_dims
-    lo = mesh.get_local_rank(dim) * (logits.shape[-1] // mesh.size(dim))
-    fn = local_map(functools.partial(_nll_local, group=mesh.get_group(dim),
-                                     lo=lo),
-                   out_placements=list(labels.placements),
-                   in_placements=(list(logits.placements),
-                                  list(labels.placements)),
-                   device_mesh=mesh)
-    return fn(logits, labels)
+    vocab_dims = [i for i, pl in enumerate(logits.placements)
+                  if pl.is_shard(logits.ndim - 1)]
+    fn = _nll_plain
+    if vocab_dims:
+        (dim,) = vocab_dims
+        lo = mesh.get_local_rank(dim) * (logits.shape[-1] // mesh.size(dim))
+        fn = functools.partial(_nll_local, group=mesh.get_group(dim), lo=lo)
+    return local_map(fn, out_placements=list(labels.placements),
+                     in_placements=(list(logits.placements),
+                                    list(labels.placements)),
+                     device_mesh=mesh)(logits, labels)
+
+
+def _nll_plain(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse - gold
 
 
 def _nll_local(x, labels, group, lo):
