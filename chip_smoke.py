@@ -148,7 +148,8 @@ Phases, each printing one JSON line:
                cells' peaks within 1% of it, and every cell's FLOPs and
                peak within 1% of the card's reading once the
                projections' placements were stated, before the MoE's
-               (``PROJECTION_CELLS``); (d) the
+               (``PROJECTION_CELLS``; ``train_4k``'s peak once the loss
+               upcast the logits a block of rows at a time); (d) the
                MoE and the ``blk_out`` remat under a mesh: in (b) also
                deepseek-moe's smoke config with the sort dispatch and
                qwen3's with ``remat_policy="blk_out"``, each against its
@@ -171,8 +172,15 @@ Phases, each printing one JSON line:
                each, the layer's FLOPs and its 2-layer cell's within 1%
                of torch 2.13's reading for this tree
                (``RECURRENT_LAYER_FLOPS``), with no product over a whole
-               dim that the reference splits (``RECURRENT_WHOLE``). (a)
-               to (d) run side by side;
+               dim that the reference splits (``RECURRENT_WHOLE``), the
+               base cells' peaks at 1 and 2 layers within
+               ``RECURRENT_LAYER_PEAK``; and the narrow cases of
+               ``scripts/torch_narrow_sharding.py`` (the SSD, the RG-LRU,
+               the router and the tied head on (2, 4), mamba2's head at
+               full width), each peak within 1.15x of the reference's
+               (the SSD's 0.90x; ``NARROW_REFERENCE_PEAKS``), the ratios
+               printed on a line of their own. (a) to (d) run side by
+               side;
  13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
                chaos}_smoke.py`` on the card, one child each (servers in
                ``"cuda"`` mode), each passing its own gates and launching
@@ -2271,21 +2279,28 @@ DRYRUN_FLOPS_RTOL = 0.01
 # Per-device FLOPs and peak bytes of the cells on the card's release
 # before the projections' placements were stated (the query heads already
 # sharded): none may read more; the decode cells' peaks stay within 1%.
+# The decode cells' peaks are read with each storage counted once (a
+# collective's wrapped result is its input in eager, where the fake kernel
+# of ``_wrap_tensor_autograd`` makes a new tensor): 2,847,329,312 and
+# 1,907,805,200 B with it counted twice.
 EARLIER_CELLS = {"train_4k/single": (7.622e13, 8_138_772_234),
                  "prefill_32k/single": (35_668_629_651_456, 3_186_494_464),
-                 "decode_32k/single": (5.235e9, 2_847_329_312),
-                 "decode_32k/multi": (2.617e9, 1_907_805_200)}
+                 "decode_32k/single": (5.235e9, 2_536_164_384),
+                 "decode_32k/multi": (2.617e9, 1_596_640_272)}
 
 
 # Per-device FLOPs and peak bytes of the cells on the card's release once
 # the projections' placements were stated, before the MoE's were:
 # qwen3-0.6b has no MoE and its remat policy is "nothing", so each must
-# stay within 1%.
+# stay within 1%. train_4k's peak is the card's reading once the loss
+# upcast the logits a block of rows at a time (7,817,913,354 B before, an
+# f32 copy of the logits and the eager backward's temporaries); the decode
+# cells' with each storage counted once (``EARLIER_CELLS``).
 PROJECTION_CELLS = {
-    "train_4k/single": (32_926_293_032_960, 7_817_913_354),
+    "train_4k/single": (32_926_293_032_960, 3_265_901_834),
     "prefill_32k/single": (35_668_629_651_456, 1_997_016_064),
-    "decode_32k/single": (4_354_080_768, 2_847_329_312),
-    "decode_32k/multi": (2_177_040_384, 1_907_805_200)}
+    "decode_32k/single": (4_354_080_768, 2_536_164_384),
+    "decode_32k/multi": (2_177_040_384, 1_596_640_272)}
 PROJECTION_CELLS_RTOL = 0.01
 # (b) also runs these smoke configs on the (1, 1) mesh and on the plain
 # path: the sort dispatch's MoE and the blk_out remat policy.
@@ -2323,6 +2338,57 @@ RECURRENT_LAYER_FLOPS = {
     "recurrentgemma-9b": (7_696_581_394_432, 40_750_649_704_448),
     "recurrentgemma-9b/remat_dots": (5_772_436_045_824, 37_314_675_867_648)}
 RECURRENT_LAYER_RTOL = 0.01
+# (d): the most bytes a device may hold at the peak of the base recurrent
+# cells of train_4k on (16, 16), (1 layer, the 2-layer cell): the RG-LRU's
+# scan on each rank's rows and channels and the loss's tail with no f32
+# copy of the logits. recurrentgemma-9b's are torch 2.13's readings with
+# the scan alone repaired, mamba2-1.3b's 1.15x the reference's head at full
+# width; before, 89,548,582,922 / 119.17 GB and 66,096,114,698 / 66.11 GB.
+RECURRENT_LAYER_PEAK = {"mamba2-1.3b": (30_490_966_315, 30_490_966_315),
+                        "recurrentgemma-9b": (13_000_899_594,
+                                              13_035_616_266)}
+# (d): the reference's per-device peak (``memory_analysis()``: arguments,
+# outputs and temporaries less aliases) of each case of
+# ``scripts/torch_narrow_sharding.py``, compiled on a (2, 4) mesh of XLA
+# CPU devices (mamba2-1.3b's head at full width on (16, 16)) by
+# ``python tests/test_torch_sharded_recurrent.py`` (the card machine has no
+# JAX); the port's must stay within NARROW_PEAK_RATIO of it, the SSD's
+# within NARROW_SSM_PEAK_RATIO.
+NARROW_REFERENCE_PEAKS = {
+    "ssm/base/params": 2_664_168,
+    "ssm/base/params_x": 2_768_624,
+    "ssm/zero_r/params": 2_713_320,
+    "ssm/zero_r/params_x": 2_776_816,
+    "ssm/seq_sp/params": 2_664_168,
+    "ssm/seq_sp/params_x": 2_768_624,
+    "rec/base/params": 750_344,
+    "rec/base/params_x": 797_072,
+    "rec/zero_r/params": 733_960,
+    "rec/zero_r/params_x": 780_688,
+    "rec/seq_sp/params": 750_344,
+    "rec/seq_sp/params_x": 797_072,
+    "router/base/params": 41_040,
+    "router/base/params_x": 103_008,
+    "router/zero_r/params": 89_168,
+    "router/zero_r/params_x": 151_648,
+    "router/seq_sp/params": 41_040,
+    "router/seq_sp/params_x": 103_008,
+    "head512/base/params": 378_000,
+    "head512/base/params_x": 394_920,
+    "head512/zero_r/params": 378_000,
+    "head512/zero_r/params_x": 394_920,
+    "head512/seq_sp/params": 378_004,
+    "head512/seq_sp/params_x": 460_136,
+    "head514/base/params": 823_440,
+    "head514/base/params_x": 826_536,
+    "head514/zero_r/params": 823_440,
+    "head514/zero_r/params_x": 826_536,
+    "head514/seq_sp/params": 1_069_972,
+    "head514/seq_sp/params_x": 1_102_888,
+    "full/mamba2-1.3b/base": 26_513_883_752,
+    "full/mamba2-1.3b/zero_r": 26_513_883_752,
+    "full/mamba2-1.3b/seq_sp": 27_312_492_584}
+NARROW_PEAK_RATIO, NARROW_SSM_PEAK_RATIO = 1.15, 0.90
 # Operands that span a dim the reference splits: mamba2's whole in_proj
 # width (8,512) or d_inner (4,096); a whole d_model x rnn_width block of
 # recurrentgemma's (its d_model is 4,096 too, so only the pair).
@@ -2506,6 +2572,7 @@ def _sharding_scripts() -> dict:
                 "scripts/torch_dryrun_flops.py", "--arch", arch, "--shape",
                 "train_4k", "--per-layer", "--top", "1000"] + (
                 ["--variant", variant] if variant else [])
+    script["narrow peaks"] = ["scripts/torch_narrow_sharding.py"]
     for arch, variant in SHARDING_VARIANT_CELLS:
         script[f"variant {arch}/{variant}"] = [
             "scripts/torch_dryrun_sweep.py", "--arch", arch, "--shape",
@@ -2553,7 +2620,36 @@ def _sharding_recurrent(key: str, rec: dict, bad: list) -> dict:
     if wide:
         bad.append(f"recurrent layer {key} multiplies a whole dim that the "
                    f"reference splits: {wide}")
+    if key in RECURRENT_LAYER_PEAK:
+        peaks = (rec["cell"]["peak_bytes"] - rec["peak_bytes"],
+                 rec["cell"]["peak_bytes"])
+        out.update(one_layer_peak_bytes=peaks[0],
+                   peak_bound_bytes=RECURRENT_LAYER_PEAK[key])
+        for layers, peak, bound in zip((1, 2), peaks,
+                                       RECURRENT_LAYER_PEAK[key]):
+            if peak > bound:
+                bad.append(f"recurrent cell {key} at {layers} layer(s): "
+                           f"peak {peak} B above {bound}")
     return out
+
+
+def _sharding_narrow(log: str, bad: list) -> list:
+    """(d)'s narrow peaks: each case's line of ``scripts/
+    torch_narrow_sharding.py`` (``log``) against NARROW_REFERENCE_PEAKS;
+    failed checks appended to ``bad``."""
+    rows = []
+    for line in log.strip().splitlines():
+        rec = json.loads(line)
+        want = NARROW_REFERENCE_PEAKS[rec["case"]]
+        bound = NARROW_SSM_PEAK_RATIO if rec["case"].startswith("ssm/") \
+            else NARROW_PEAK_RATIO
+        rows.append({"case": rec["case"], "peak_bytes": rec["peak_bytes"],
+                     "reference_peak_bytes": want,
+                     "peak_ratio": rec["peak_bytes"] / want})
+        if rec["peak_bytes"] > bound * want:
+            bad.append(f"narrow {rec['case']}: peak {rec['peak_bytes']} B, "
+                       f"{rec['peak_bytes'] / want:.3f}x the reference's")
+    return rows
 
 
 def _sharding_layers(logs: dict, out_dir: Path, bad: list) -> tuple:
@@ -2562,6 +2658,8 @@ def _sharding_layers(logs: dict, out_dir: Path, bad: list) -> tuple:
     Returns (MoE layers, recurrent layers, variant cells)."""
     moe_layers, recurrent_layers, variant_cells = [], [], []
     for label in _sharding_scripts():
+        if label == "narrow peaks":
+            continue
         rec = json.loads(logs[label].strip().splitlines()[-1])
         (out_dir / (label.replace(" ", "_").replace("/", "__")
                     + ".json")).write_text(json.dumps(rec))
@@ -2699,6 +2797,10 @@ def phase_sharding(card: str, train_out: dict) -> dict:
                        f"{pair['mesh']['param_types']}")
     moe_layers, recurrent_layers, variant_cells = _sharding_layers(
         logs, out_dir, bad)
+    narrow = _sharding_narrow(logs["narrow peaks"], bad)
+    (out_dir / "narrow_peaks.json").write_text(json.dumps(narrow))
+    emit({"phase": "sharding_narrow_peaks",
+          "peak_ratio": {r["case"]: r["peak_ratio"] for r in narrow}})
     if bench_run.main(["--only", "roofline", "--out",
                        str(OUT_DIR / "bench")]) != 0:
         bad.append("the roofline suite failed")
@@ -2755,7 +2857,7 @@ def phase_sharding(card: str, train_out: dict) -> dict:
            "batch": SHARDING_BATCH, "seq": SHARDING_SEQ, "predict": predict,
            "mesh_step": step, "cells": cells, "moe_layers": moe_layers,
            "recurrent_layers": recurrent_layers,
-           "variant_cells": variant_cells,
+           "narrow_peaks": narrow, "variant_cells": variant_cells,
            "dryrun_log": {k: v.strip().splitlines()[-1:] for k, v in
                           logs.items() if k in cell_of},
            "seconds": time.perf_counter() - t_phase}

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 
 import torch
@@ -53,10 +54,12 @@ def tally(arch: str, shape: str, multi_pod: bool, layers,
     return res, counts
 
 
-def live_at_peak(arch: str, shape: str, multi_pod: bool, layers,
-                 variant: str | None = None, top: int = 25):
-    """The cell's record and the ``top`` largest groups of storages live
-    at its peak: ``[(label, creating operator, shape, dtype), bytes]``."""
+@contextlib.contextmanager
+def recording_live(top: int = 25):
+    """For the block, every ``DeviceCost`` notes the ``top`` largest
+    groups of storages live at its peak; yields a dict whose ``"live"``
+    then holds them: ``[(label, creating operator, shape, dtype),
+    bytes]``."""
     made, snap = {}, {"peak": -1, "live": []}
     cur = [None]
     add, free = D.DeviceCost._add, D.DeviceCost._free
@@ -89,12 +92,21 @@ def live_at_peak(arch: str, shape: str, multi_pod: bool, layers,
     D.DeviceCost._add, D.DeviceCost._free = adding, freeing
     D.DeviceCost.__torch_dispatch__ = naming
     try:
-        res = D.run_cell(arch, shape, multi_pod, n_layers=layers,
-                         variant=variant)
+        yield snap
     finally:
         D.DeviceCost._add, D.DeviceCost._free = add, free
         D.DeviceCost.__torch_dispatch__ = dispatch
-    return res, [[list(k), n] for k, n in snap["live"]]
+        snap["live"] = [[list(k), n] for k, n in snap["live"]]
+
+
+def live_at_peak(arch: str, shape: str, multi_pod: bool, layers,
+                 variant: str | None = None, top: int = 25):
+    """The cell's record and the ``top`` largest groups of storages live
+    at its peak (``recording_live``)."""
+    with recording_live(top) as snap:
+        res = D.run_cell(arch, shape, multi_pod, n_layers=layers,
+                         variant=variant)
+    return res, snap["live"]
 
 
 def _numbers(res: dict) -> dict:

@@ -7,9 +7,11 @@ group under a (data 2, model 4) mesh of fake ranks.
 For every case (``LAYERS`` x ``RULES`` x ``WRT``) it prints one JSON line:
 the port's matmul FLOPs on a fake 8-rank mesh under the dry run's
 ``DeviceCost`` (all, and those of 2-D products), and the peak of the
-bytes it allocates plus its inputs' local shards; then the FLOPs of the
-products of the tied table in mamba2-1.3b's one-layer ``train_4k`` dry
-run on (16, 16) under each rule set (``head_full_port``).
+bytes it allocates and its inputs' local shards (each storage counted
+once, as the dry run counts them); then, under each rule set, the FLOPs
+of the products of the tied table in mamba2-1.3b's one-layer
+``train_4k`` dry run on (16, 16) (``head_full_port``) and the peak of
+that head alone at full width (``FULL_HEAD``).
 ``tests/test_torch_sharded_recurrent.py`` holds these against the
 reference's compiled HLO; run as a script it prints both side by side.
 
@@ -21,7 +23,11 @@ experts); the tied head (final norm, logits, the loss's logsumexp and
 gold logit) with a vocab of 512, which ``model`` divides, and of 514,
 which it does not. Each under the base rules and the ``zero_r`` and
 ``seq_sp`` variants; the gradient of the parameters, and of the
-parameters and the input. It needs only torch.
+parameters and the input. With ``--other`` it measures instead qwen3's
+attention and MLP and dbrx's MoE under both dispatches (``OTHER_LAYERS``,
+the narrow widths of ``tests/test_torch_sharded_{projections,moe}.py``);
+with ``--live`` it adds to each line the largest groups of storages live
+at the peak. It needs only torch.
 """
 from __future__ import annotations
 
@@ -46,17 +52,41 @@ NARROW = {
     "router": ("dbrx-132b", dict(d_model=128, n_experts=8, top_k=2,
                                  d_ff_expert=64)),
     "head": ("mamba2-1.3b", dict(d_model=128)),
+    # The widths of tests/test_torch_sharded_{projections,moe}.py.
+    "attention": ("qwen3-0.6b", dict(d_model=128, n_heads=8, n_kv=2,
+                                     head_dim=32, d_ff=384)),
+    "mlp": ("qwen3-0.6b", dict(d_model=128, n_heads=8, n_kv=2, head_dim=32,
+                               d_ff=384)),
+    "moe_einsum": ("dbrx-132b", dict(d_model=128, n_experts=8, top_k=2,
+                                     d_ff_expert=64, moe_impl="einsum")),
+    "moe_sort": ("dbrx-132b", dict(d_model=128, n_experts=8, top_k=2,
+                                   d_ff_expert=64, moe_impl="sort")),
 }
+# Layers measured beside those of ``cases()``: their peaks, a record
+# (``other_cases``).
+OTHER_LAYERS = ("attention", "mlp", "moe_einsum", "moe_sort")
+
+# The tied head at mamba2-1.3b's full width (d_model 2,048, vocab 50,280,
+# which ``model`` does not divide), train_4k's batch on (data 16, model 16):
+# ``port(FULL_HEAD, rules, "params_x", **FULL_HEAD_SHAPE)``.
+FULL_HEAD = "head_full"
+FULL_HEAD_SHAPE = dict(mesh_shape=(16, 16), batch=256, seq=4096)
 
 
 
-def cases():
-    return [(layer, rules, wrt) for layer in LAYERS for rules in RULES
+def cases(layers=LAYERS):
+    return [(layer, rules, wrt) for layer in layers for rules in RULES
             for wrt in WRT]
+
+
+def other_cases():
+    return cases(OTHER_LAYERS)
 
 
 def narrow_cfg(layer: str):
     from repro_torch.configs import get_config
+    if layer == FULL_HEAD:
+        return dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
     arch, over = NARROW[layer.rstrip("0123456789")]
     cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
     if layer.startswith("head"):
@@ -64,7 +94,7 @@ def narrow_cfg(layer: str):
     return cfg
 
 
-def _module(layer: str, cfg):
+def _module(layer: str, cfg, batch: int, seq: int):
     """(module on the meta device, its parameters' logical axes, the
     loss of the module and the input, the input's logical axes)."""
     import torch
@@ -81,6 +111,18 @@ def _module(layer: str, cfg):
                 lambda p, x: (constrain(L.rglru_apply(p, x, cfg)[0],
                                         *RESID) ** 2).sum(),
                 ("batch", None, "blk_in_embed"))
+    other = {
+        "attention": (L.Attention, L.attention_axes(cfg),
+                      lambda p, x: L.attention_apply(p, x, cfg,
+                                                     local=False)),
+        "mlp": (L.MLP, L.mlp_axes(), lambda p, x: L.mlp_apply(p, x, cfg)),
+        "moe": (L.MoE, L.moe_axes(cfg), lambda p, x: L.moe_apply(p, x, cfg)),
+    }.get(layer.partition("_")[0])
+    if other is not None:
+        make, axes, apply = other
+        return (make(cfg, device="meta", dtype=torch.float32), axes,
+                lambda p, x: (constrain(apply(p, x), *RESID) ** 2).sum(),
+                ("batch", None, "blk_in_embed"))
     module = torch.nn.Module()
     if layer == "router":
         module.router = torch.nn.Parameter(torch.empty(
@@ -94,26 +136,28 @@ def _module(layer: str, cfg):
 
     def loss(p, x):
         from repro_torch.launch import dryrun as D
-        labels = D._dtensor(torch.empty(BATCH, SEQ, dtype=torch.long,
+        labels = D._dtensor(torch.empty(batch, seq, dtype=torch.long,
                                         device="meta"), ("batch", None),
                             x.device_mesh)
-        logits = M.head_apply(x, p.ln_f, p.embed, cfg).float()
-        return M._nll(logits, labels).sum() / (BATCH * SEQ)
+        logits = M.head_apply(x, p.ln_f, p.embed, cfg)
+        return M._nll(logits, labels).sum() / (batch * seq)
     return (module, {"embed": ("vocab", "fsdp"), "ln_f": (None,)}, loss,
             RESID)
 
 
-def port(layer: str, rules_name: str, wrt: str) -> dict:
+def port(layer: str, rules_name: str, wrt: str, mesh_shape=MESH,
+         batch: int = BATCH, seq: int = SEQ) -> dict:
     """Rank 0's matmul FLOPs (all, and those of 2-D products) and peak
-    bytes of one case on a fake 8-rank (2, 4) mesh, the parameters and
-    the input DTensors of fake shards."""
+    bytes of one case on a fake (data, model) mesh of ``mesh_shape`` (the
+    narrow (2, 4) by default) with an input of ``batch`` x ``seq`` tokens,
+    the parameters and the input DTensors of fake shards."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding import replicate_plain, set_mesh
     cfg = narrow_cfg(layer)
-    module, axes, loss, x_axes = _module(layer, cfg)
+    module, axes, loss, x_axes = _module(layer, cfg, batch, seq)
     two_d = collections.Counter()
     dispatch = D.DeviceCost.__torch_dispatch__
 
@@ -126,9 +170,9 @@ def port(layer: str, rules_name: str, wrt: str) -> dict:
 
     D.DeviceCost.__torch_dispatch__ = counting
     try:
-        with D.fake_world(MESH[0] * MESH[1]):
-            mesh = make_mesh(MESH, ("data", "model"))
-            rules = D.arch_rules(cfg, MESH[1])
+        with D.fake_world(mesh_shape[0] * mesh_shape[1]):
+            mesh = make_mesh(mesh_shape, ("data", "model"))
+            rules = D.arch_rules(cfg, mesh_shape[1])
             if rules_name != "base":
                 rules.update(D.VARIANTS[rules_name]["rules"])
             set_mesh(mesh, rules)
@@ -137,21 +181,20 @@ def port(layer: str, rules_name: str, wrt: str) -> dict:
                     for n, p in list(module.named_parameters()):
                         module._parameters[n] = torch.nn.Parameter(
                             D._dtensor(p, axes[n], mesh))
-                    x = D._dtensor(torch.empty(BATCH, SEQ, cfg.d_model,
+                    x = D._dtensor(torch.empty(batch, seq, cfg.d_model,
                                                device="meta"), x_axes, mesh)
                     x.requires_grad_(wrt == "params_x")
                 cost = D.DeviceCost()
                 inputs = list(module.parameters()) + [x]
                 wrt_ = inputs if wrt == "params_x" else inputs[:-1]
+                cost.register(inputs, "arguments")
                 with cost, replicate_plain():
                     torch.autograd.grad(loss(module, x), wrt_)
             finally:
                 set_mesh(None)
     finally:
         D.DeviceCost.__torch_dispatch__ = dispatch
-    held = sum(D._nbytes(D._local(t)) for t in inputs)
-    return {"flops": cost.flops, "mm": two_d["mm"],
-            "peak_bytes": cost.peak + held}
+    return {"flops": cost.flops, "mm": two_d["mm"], "peak_bytes": cost.peak}
 
 
 def head_full_port(rules_name: str) -> int:
@@ -176,17 +219,41 @@ def head_full_port(rules_name: str) -> int:
                    .replace(",", " ").split()))
 
 
+def port_live(layer: str, rules_name: str, wrt: str, top: int = 12,
+              **shape) -> dict:
+    """``port``'s record and the ``top`` largest groups of storages live
+    at its peak (``torch_dryrun_flops.recording_live``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_dryrun_flops",
+        Path(__file__).with_name("torch_dryrun_flops.py"))
+    flops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flops)
+    with flops.recording_live(top) as snap:
+        res = port(layer, rules_name, wrt, **shape)
+    return {**res, "live": snap["live"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--other", action="store_true",
+                    help="measure OTHER_LAYERS instead")
+    ap.add_argument("--live", action="store_true",
+                    help="add the storages live at each case's peak")
     args = ap.parse_args(argv)
     import torch
     torch.set_num_threads(1)
+    run = port_live if args.live else port
     lines = [json.dumps({"case": "/".join(c), "torch": torch.__version__,
-                         **port(*c)}) for c in cases()]
-    lines += [json.dumps({"case": f"full/mamba2-1.3b/{rules}",
-                          "torch": torch.__version__,
-                          "flops": head_full_port(rules)}) for rules in RULES]
+                         **run(*c)})
+             for c in (other_cases() if args.other else cases())]
+    if not args.other:
+        lines += [json.dumps({
+            "case": f"full/mamba2-1.3b/{rules}", "torch": torch.__version__,
+            "flops": head_full_port(rules),
+            **run(FULL_HEAD, rules, "params_x", **FULL_HEAD_SHAPE)})
+            for rules in RULES]
     print("\n".join(lines))
     if args.out:
         Path(args.out).write_text("\n".join(lines) + "\n")

@@ -22,8 +22,8 @@ included); a serve cell ``prefill`` or ``decode_step`` on bf16 weights.
     at that peak, and the argument bytes (the step's inputs);
   * ``cost_analysis``: ``flops`` of the matmuls (``torch.utils.
     flop_counter``'s formulas on local shapes) and ``bytes accessed``, the
-    input and output bytes of every dispatched op but views (an eager
-    program's count, not XLA's fused one);
+    input and output bytes of every dispatched op but views and device
+    queries (an eager program's count, not XLA's fused one);
   * ``collectives``: each ``_c10d_functional`` collective's result bytes
     and group size, with the reference's ring factors (``wire_bytes``).
 
@@ -193,8 +193,11 @@ class DeviceCost(TorchDispatchMode):
             return NotImplemented
         packet = func._overloadpacket
         waiting = packet is torch.ops._c10d_functional.wait_tensor
-        if waiting and isinstance(args[0], FakeTensor):
-            # Eager waits return their input; the fake kernel a new tensor.
+        wrapping = packet.__name__ == "_wrap_tensor_autograd"
+        if (waiting or wrapping) and isinstance(args[0], FakeTensor):
+            # Eager waits return their input, and eager wraps of a
+            # collective's result (``_wrap_tensor_autograd``, on some
+            # releases) hold it; their fake kernels make a new tensor.
             return args[0]
         out = func(*args, **kwargs)
         if active_fake_mode() is not self._fake:
@@ -217,7 +220,8 @@ class DeviceCost(TorchDispatchMode):
             rec["count"] += 1
             rec["result_bytes"] += size
             rec["wire_bytes_per_device"] += wire_bytes(kind, size, g)
-        elif not func.is_view and not waiting:
+        elif not func.is_view and not waiting and \
+                packet is not torch.ops.prim.device:
             ins = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
             self.bytes += sum(_nbytes(t) for t in ins + outs)

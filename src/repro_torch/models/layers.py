@@ -714,10 +714,27 @@ def _moe_router(p, x, cfg):
     # partial sum over x's split d_model, all-reduced.
     (logits,) = _project(x.float(), [p.router.float()],
                          [("batch", None, None)], split_cols=False)
-    probs = torch.softmax(logits, dim=-1)                      # (B,S,E)
-    top_p, top_e = torch.topk(probs, k, dim=-1)                # (B,S,k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    route = functools.partial(_route, k=k)
+    if get_mesh() is not None and hasattr(logits, "placements"):
+        # Each rank routes its own rows (``local_map``): DTensor's rule
+        # for top-k's backward builds the global batch's probabilities on
+        # some releases.
+        from torch.distributed.tensor.experimental import local_map
+        rows = list(logits.placements)
+        route = local_map(route, out_placements=(rows, rows),
+                          in_placements=(rows,),
+                          device_mesh=logits.device_mesh)
+    top_p, top_e = route(logits)
     return top_p, top_e, cap
+
+
+def _route(logits, k: int):
+    """The router's softmax over (B, S, E) ``logits``, its top ``k`` and
+    their weights normalised: (top_p, top_e), each (B, S, k)."""
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return top_p, top_e
 
 
 def _moe_input(x):
@@ -984,8 +1001,12 @@ def _ssd_chunks(xs, bmat, cmat, dt, da, state, q: int, intra_dt):
     lmat = torch.exp(torch.where(tri[None, None, ..., None], diff, -1e30))
     lmat = lmat.to(intra_dt)
     gmat = torch.einsum("bcin,bcjn->bcij", c_c, b_c)   # scores C_i . B_j
-    y_diag = torch.einsum("bcij,bcijh,bcjh,bcjhp->bcihp", gmat.float(),
-                          lmat.float(), dt_c.to(intra_dt).float(),
+    # ``bcij,bcijh,bcjh,bcjhp->bcihp`` contracted left to right: the
+    # weights of each (i, j), then j against xs. The path that opt_einsum
+    # picks for the four operands builds a (B, nc, q, nh, hd, q) product.
+    wmat = gmat.float()[..., None] * lmat.float() \
+        * dt_c.to(intra_dt).float()[:, :, None]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", wmat,
                           xs_c.to(intra_dt).float())
 
     # Chunk-final states + inter-chunk recurrence.
@@ -1154,6 +1175,37 @@ def _linear_scan(a, b):
     return _interleave(even_a, odd_a), _interleave(even_b, odd_b)
 
 
+def _rglru_scan(a, gated, state):
+    """h_t = a_t h_{t-1} + gated_t along dim 1 from h_{-1} = ``state`` (B,
+    w), or 0 where it is None: every h. On DTensors each rank scans its
+    batch rows and channels (``local_map`` on ``a``'s shards, ``gated``
+    and ``state`` brought to them): every channel's recurrence is its own,
+    and every row's; the scan's interleaved buffers would otherwise be
+    built whole over the global batch and the full width."""
+    if get_mesh() is None or not hasattr(a, "placements"):
+        return _rglru_scan_local(a, gated, state)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    rows = [Shard(0) if pl.is_shard(0) else
+            Shard(2) if pl.is_shard(2) else Replicate()
+            for pl in a.placements]
+    st = [Shard(1) if pl.is_shard(2) else pl for pl in rows]
+    a, gated = (t.redistribute(mesh, rows) for t in (a, gated))
+    if state is not None:
+        state = state.redistribute(mesh, st)
+    return local_map(_rglru_scan_local, out_placements=rows,
+                     in_placements=(rows, rows,
+                                    None if state is None else st),
+                     device_mesh=mesh)(a, gated, state)
+
+
+def _rglru_scan_local(a, gated, state):
+    if state is not None:  # chain from a carried state
+        gated[:, 0] += a[:, 0] * state
+    return _linear_scan(a, gated)[1]
+
+
 def rglru_apply(p, x, cfg, state=None, conv_carry=None):
     """Griffin recurrent block: proj -> causal conv -> RG-LRU -> gated out.
 
@@ -1180,9 +1232,7 @@ def rglru_apply(p, x, cfg, state=None, conv_carry=None):
         y = h[:, None]
         new_state = h
     else:
-        if state is not None:  # chain from a carried state
-            gated[:, 0] += a[:, 0] * state
-        _, y = _linear_scan(a, gated)
+        y = _rglru_scan(a, gated, state)
         new_state = y[:, -1]
     y = y.to(x.dtype) * gelu(gate)
     y = constrain(y, *split)

@@ -524,82 +524,125 @@ def forward(model: Model, tokens_or_embeds):
     return model(tokens_or_embeds)
 
 
-class _ShardedNLL(torch.autograd.Function):
-    """``logsumexp(x) - x[label]`` over the last dim of ``x`` when each
-    rank of ``group`` holds the vocab slice ``[lo, lo + V_local)``: the max
-    and the sum of exponentials are all-reduced, the gold logit summed
-    from the rank that holds it, so the logits are never gathered. The
-    ops are ``torch.logsumexp``'s and its backward's (``log(sum(exp(x -
-    max))) + max``; ``g * exp(x - lse)``), so on one rank it is the plain
-    ``logsumexp - gather`` bit for bit."""
+# The loss upcasts the logits to f32 a block of token rows at a time: a
+# block of at most this many bytes of f32.
+NLL_BLOCK_BYTES = 1 << 28
+
+
+def _row_blocks(n: int, rows: int) -> list:
+    """[(start, stop)] of ``n`` rows in blocks of ``rows`` (at least 2). A
+    last block of one row joins the one before it: on the CPU a sum over
+    one row may be split over threads, where a sum over several rows is
+    split between them, and a row would then add in another order."""
+    bounds = list(range(0, n, max(2, rows))) + [n]
+    if len(bounds) > 2 and bounds[-1] - bounds[-2] == 1:
+        del bounds[-2]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+class _NLL(torch.autograd.Function):
+    """Per-token ``logsumexp(x) - x[label]`` over the last dim of the
+    logits ``x`` in f32, whatever their dtype: each block of token rows
+    (``_row_blocks``) is upcast in turn, so one f32 copy of the logits is
+    never made; the forward saves the logits and ``lse``, and the backward
+    writes ``g * exp(x - lse)`` block by block into the gradient, in the
+    logits' dtype. The ops are ``torch.logsumexp``'s and its backward's
+    (``log(sum(exp(x - max))) + max``; ``g * exp(x - lse)``) on the same
+    elements of each row, so it is the plain ``logsumexp - gather`` of f32
+    logits bit for bit.
+
+    With a ``group``, each of its ranks holds the vocab slice ``[lo, lo +
+    V_local)``: the max and the sum of exponentials are all-reduced and the
+    gold logit summed from the rank that holds it, so the logits are never
+    gathered."""
 
     @staticmethod
-    def forward(ctx, x, labels, group, lo):
+    def forward(ctx, x, labels, group, lo, block_rows):
         from torch.distributed import _functional_collectives as funcol
-        m = funcol.all_reduce(torch.amax(x, -1, keepdim=True), "max", group)
-        m = funcol.wait_tensor(m)
+        f32 = torch.float32
+        v = x.shape[-1]
+        x2 = x.reshape(-1, v)
+        local = labels.reshape(-1) - lo
+        blocks = _row_blocks(x2.shape[0], block_rows)
+        m = torch.amax(x2, -1, keepdim=True).to(f32)
+        if group is not None:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
         m = m.masked_fill(m.abs() == math.inf, 0)
-        s = funcol.wait_tensor(funcol.all_reduce(
-            torch.sum(torch.exp(x - m), -1), "sum", group))
-        lse = torch.log(s) + m[..., 0]
-        local = labels - lo
-        inside = (local >= 0) & (local < x.shape[-1])
-        local = local.clamp(0, x.shape[-1] - 1)
-        gold = torch.gather(x, -1, local[..., None])[..., 0]
-        gold = funcol.wait_tensor(funcol.all_reduce(
-            torch.where(inside, gold, 0.0), "sum", group))
+        s = torch.cat([torch.sum(torch.sub(x2[i:j], m[i:j]).exp_(), -1)
+                       for i, j in blocks])
+        if group is not None:
+            s = funcol.wait_tensor(funcol.all_reduce(s, "sum", group))
+        lse = torch.log(s) + m[:, 0]
+        inside = None
+        if group is not None:
+            inside = (local >= 0) & (local < v)
+            local = local.clamp(0, v - 1)
+        gold = torch.gather(x2, -1, local[:, None])[:, 0].to(f32)
+        if group is not None:
+            gold = funcol.wait_tensor(funcol.all_reduce(
+                torch.where(inside, gold, 0.0), "sum", group))
         ctx.save_for_backward(x, lse, local, inside)
-        return lse - gold
+        ctx.blocks = blocks
+        return (lse - gold).reshape(labels.shape)
 
     @staticmethod
     def backward(ctx, g):
         x, lse, local, inside = ctx.saved_tensors
-        grad = g[..., None] * torch.exp(x - lse[..., None])
-        grad.scatter_add_(-1, local[..., None],
-                          torch.where(inside, -g, 0.0)[..., None])
-        return grad, None, None, None
+        x2 = x.reshape(-1, x.shape[-1])
+        g = g.reshape(-1)
+        gold = -g if inside is None else torch.where(inside, -g, 0.0)
+        grad = torch.empty_like(x2)
+        buf = None if grad.dtype == torch.float32 else grad.new_empty(
+            (max(j - i for i, j in ctx.blocks), x2.shape[1]),
+            dtype=torch.float32)
+        for i, j in ctx.blocks:
+            out = grad[i:j] if buf is None else buf[:j - i]
+            torch.sub(x2[i:j], lse[i:j, None], out=out)
+            out.exp_().mul_(g[i:j, None])
+            out.scatter_add_(-1, local[i:j, None], gold[i:j, None])
+            if buf is not None:
+                grad[i:j] = out
+        return grad.reshape(x.shape), None, None, None, None
 
 
 def _nll(logits, labels):
-    """Per-token ``logsumexp - gold`` of f32 logits. On DTensors each rank
-    runs it on its shards (``local_map``): vocab-sharded logits stay
-    sharded (``_ShardedNLL`` on each rank's slice), as the reference's
-    sharded logsumexp does; logits whole on the vocab run the plain ops on
-    each rank's rows (DTensor's strategy for the gold gather's backward
-    builds the global batch's logits on some releases)."""
+    """Per-token ``logsumexp - gold`` of the logits in f32 (``_NLL``, in
+    blocks of ``NLL_BLOCK_BYTES`` of f32). On DTensors each rank runs it
+    on its shards (``local_map``): vocab-sharded logits stay sharded (each
+    rank on its slice), as the reference's sharded logsumexp does; logits
+    whole on the vocab on each rank's rows (DTensor's strategy for the
+    gold gather's backward builds the global batch's logits on some
+    releases)."""
+    block_rows = NLL_BLOCK_BYTES // (4 * logits.shape[-1])
     mesh = get_mesh()
     if mesh is None or not hasattr(logits, "placements"):
-        return _nll_plain(logits, labels)
+        return _NLL.apply(logits, labels, None, 0, block_rows)
     from torch.distributed.tensor.experimental import local_map
     vocab_dims = [i for i, pl in enumerate(logits.placements)
                   if pl.is_shard(logits.ndim - 1)]
-    fn = _nll_plain
+    group, lo = None, 0
     if vocab_dims:
         (dim,) = vocab_dims
+        group = mesh.get_group(dim)
         lo = mesh.get_local_rank(dim) * (logits.shape[-1] // mesh.size(dim))
-        fn = functools.partial(_nll_local, group=mesh.get_group(dim), lo=lo)
+    fn = functools.partial(_nll_local, group=group, lo=lo,
+                           block_rows=block_rows)
     return local_map(fn, out_placements=list(labels.placements),
                      in_placements=(list(logits.placements),
                                     list(labels.placements)),
                      device_mesh=mesh)(logits, labels)
 
 
-def _nll_plain(logits, labels):
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return lse - gold
-
-
-def _nll_local(x, labels, group, lo):
-    return _ShardedNLL.apply(x, labels, group, lo)
+def _nll_local(x, labels, group, lo, block_rows):
+    return _NLL.apply(x, labels, group, lo, block_rows)
 
 
 def loss_fn(model: Model, batch: dict):
-    """Mean next-token cross-entropy (f32 logsumexp; over vocab-sharded
-    logits under a mesh)."""
+    """Mean next-token cross-entropy (f32 logsumexp, the logits upcast a
+    block of rows at a time; over vocab-sharded logits under a mesh)."""
     cfg = model.cfg
     inputs = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
-    logits = forward(model, inputs).float()
+    logits = forward(model, inputs)
     labels = batch["labels"].long()
     mask = batch.get("mask")
     nll = _nll(logits, labels)

@@ -175,3 +175,23 @@ def test_cli_writes_cells_and_roofline_reads_them(tmp_path, monkeypatch):
     r = roofline.analyze("qwen3-0.6b", "decode_32k")
     assert r["dominant"] in ("compute", "memory", "collective")
     assert r["n_devices"] == 4 and r["cost_source"] == "full depth"
+
+
+def test_device_cost_counts_each_storage_once():
+    """A collective's wrapped result (``_wrap_tensor_autograd``) holds its
+    input in eager, so ``DeviceCost`` counts no new storage for it (its
+    fake kernel makes one), nor bytes for a device query."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    wrap = torch.ops._c10d_functional._wrap_tensor_autograd
+    x = torch.randn(4, 8)
+    assert wrap(x).elem is x
+    with FakeTensorMode():
+        x = torch.empty(64, 128)
+    cost = D.DeviceCost()
+    cost.register([x], "arguments")
+    with cost:
+        assert wrap(x) is x
+        torch.ops.prim.device(x)
+    assert cost.peak == 64 * 128 * 4
+    assert cost.bytes == 0
