@@ -176,9 +176,10 @@ Phases, each printing one JSON line:
                base cells' peaks at 1 and 2 layers within
                ``RECURRENT_LAYER_PEAK``; and the narrow cases of
                ``scripts/torch_narrow_sharding.py`` (the SSD, the RG-LRU,
-               the router and the tied head on (2, 4), mamba2's head at
-               full width), each peak within 1.15x of the reference's
-               (the SSD's 0.90x; ``NARROW_REFERENCE_PEAKS``), the ratios
+               the router, the tied head and dbrx's MoE under both
+               dispatches on (2, 4), mamba2's head at full width), each
+               peak within 1.15x of the reference's (the SSD's 0.90x;
+               ``NARROW_REFERENCE_PEAKS``), the ratios
                printed on a line of their own. (a) to (d) run side by
                side;
  13. lanes   — the port's smoke lanes ``scripts/torch_{trace,plan,gd,
@@ -2353,7 +2354,9 @@ RECURRENT_LAYER_PEAK = {"mamba2-1.3b": (30_490_966_315, 30_490_966_315),
 # CPU devices (mamba2-1.3b's head at full width on (16, 16)) by
 # ``python tests/test_torch_sharded_recurrent.py`` (the card machine has no
 # JAX); the port's must stay within NARROW_PEAK_RATIO of it, the SSD's
-# within NARROW_SSM_PEAK_RATIO.
+# within NARROW_SSM_PEAK_RATIO. The MoE's cases read up to 1.58x (einsum
+# dispatch) and 1.30x (sort) before each expert weight was gathered inside
+# its product and the dispatched rows were no longer held scaled.
 NARROW_REFERENCE_PEAKS = {
     "ssm/base/params": 2_664_168,
     "ssm/base/params_x": 2_768_624,
@@ -2385,6 +2388,18 @@ NARROW_REFERENCE_PEAKS = {
     "head514/zero_r/params_x": 826_536,
     "head514/seq_sp/params": 1_069_972,
     "head514/seq_sp/params_x": 1_102_888,
+    "moe_einsum/base/params": 563_008,
+    "moe_einsum/base/params_x": 714_632,
+    "moe_einsum/zero_r/params": 608_064,
+    "moe_einsum/zero_r/params_x": 764_104,
+    "moe_einsum/seq_sp/params": 563_008,
+    "moe_einsum/seq_sp/params_x": 714_632,
+    "moe_sort/base/params": 1_047_040,
+    "moe_sort/base/params_x": 1_152_072,
+    "moe_sort/zero_r/params": 1_096_128,
+    "moe_sort/zero_r/params_x": 1_302_536,
+    "moe_sort/seq_sp/params": 983_232,
+    "moe_sort/seq_sp/params_x": 1_090_312,
     "full/mamba2-1.3b/base": 26_513_883_752,
     "full/mamba2-1.3b/zero_r": 26_513_883_752,
     "full/mamba2-1.3b/seq_sp": 27_312_492_584}

@@ -1,11 +1,11 @@
-"""The sharded step's recurrent layers, router and tied logits at a narrow
-width on the port: per-device matmul FLOPs and peak bytes of each product
-group under a (data 2, model 4) mesh of fake ranks.
+"""The sharded step's recurrent layers, router, tied logits and MoE at a
+narrow width on the port: per-device matmul FLOPs and peak bytes of each
+product group under a (data 2, model 4) mesh of fake ranks.
 
     PYTHONPATH=src python scripts/torch_narrow_sharding.py [--out FILE]
 
-For every case (``LAYERS`` x ``RULES`` x ``WRT``) it prints one JSON line:
-the port's matmul FLOPs on a fake 8-rank mesh under the dry run's
+For every case (``PEAK_LAYERS`` x ``RULES`` x ``WRT``) it prints one JSON
+line: the port's matmul FLOPs on a fake 8-rank mesh under the dry run's
 ``DeviceCost`` (all, and those of 2-D products), and the peak of the
 bytes it allocates and its inputs' local shards (each storage counted
 once, as the dry run counts them); then, under each rule set, the FLOPs
@@ -21,13 +21,16 @@ off the 140-column edges, as the full width's 8,512 are off its 532);
 recurrentgemma's RG-LRU (d_model and rnn_width 128); dbrx's router (8
 experts); the tied head (final norm, logits, the loss's logsumexp and
 gold logit) with a vocab of 512, which ``model`` divides, and of 514,
-which it does not. Each under the base rules and the ``zero_r`` and
+which it does not; dbrx's MoE under both dispatches (the width of
+``tests/test_torch_sharded_moe.py``: 8 experts, top 2, d_ff_expert 64,
+capacity 20). Each under the base rules and the ``zero_r`` and
 ``seq_sp`` variants; the gradient of the parameters, and of the
-parameters and the input. With ``--other`` it measures instead qwen3's
-attention and MLP and dbrx's MoE under both dispatches (``OTHER_LAYERS``,
-the narrow widths of ``tests/test_torch_sharded_{projections,moe}.py``);
-with ``--live`` it adds to each line the largest groups of storages live
-at the peak. It needs only torch.
+parameters and the input. With ``--other`` it measures instead
+``OTHER_LAYERS``: qwen3's attention and MLP (the narrow widths of
+``tests/test_torch_sharded_projections.py``), dbrx's MoE, and gemma2-2b's
+attention with its heads whole on ``model`` and its softcap; with
+``--live`` it adds to each line the largest groups of storages live at
+the peak. It needs only torch.
 """
 from __future__ import annotations
 
@@ -61,10 +64,19 @@ NARROW = {
                                      d_ff_expert=64, moe_impl="einsum")),
     "moe_sort": ("dbrx-132b", dict(d_model=128, n_experts=8, top_k=2,
                                    d_ff_expert=64, moe_impl="sort")),
+    # gemma2-2b's attention: its heads kept whole on ``model`` (6 query
+    # and 3 kv heads, which ``model`` does not divide either), the softcap,
+    # the sequence in 8 chunks as train_4k's 4,096 are in chunks of 512.
+    "attention_gemma2": ("gemma2-2b", dict(d_model=128, n_heads=6, n_kv=3,
+                                           head_dim=32, d_ff=384,
+                                           attn_chunk=8)),
 }
-# Layers measured beside those of ``cases()``: their peaks, a record
-# (``other_cases``).
-OTHER_LAYERS = ("attention", "mlp", "moe_einsum", "moe_sort")
+# Layers whose peaks are held to the reference's beside those of
+# ``cases()``, which also have their dots held (``peak_cases``).
+PEAK_LAYERS = LAYERS + ("moe_einsum", "moe_sort")
+# Layers measured beside those: their peaks, a record (``other_cases``).
+OTHER_LAYERS = ("attention", "mlp", "moe_einsum", "moe_sort",
+                "attention_gemma2")
 
 # The tied head at mamba2-1.3b's full width (d_model 2,048, vocab 50,280,
 # which ``model`` does not divide), train_4k's batch on (data 16, model 16):
@@ -79,6 +91,10 @@ def cases(layers=LAYERS):
             for wrt in WRT]
 
 
+def peak_cases():
+    return cases(PEAK_LAYERS)
+
+
 def other_cases():
     return cases(OTHER_LAYERS)
 
@@ -87,7 +103,8 @@ def narrow_cfg(layer: str):
     from repro_torch.configs import get_config
     if layer == FULL_HEAD:
         return dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
-    arch, over = NARROW[layer.rstrip("0123456789")]
+    arch, over = NARROW[layer if layer in NARROW
+                        else layer.rstrip("0123456789")]
     cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
     if layer.startswith("head"):
         cfg = dataclasses.replace(cfg, vocab=int(layer[4:]))
@@ -247,7 +264,7 @@ def main(argv=None) -> int:
     run = port_live if args.live else port
     lines = [json.dumps({"case": "/".join(c), "torch": torch.__version__,
                          **run(*c)})
-             for c in (other_cases() if args.other else cases())]
+             for c in (other_cases() if args.other else peak_cases())]
     if not args.other:
         lines += [json.dumps({
             "case": f"full/mamba2-1.3b/{rules}", "torch": torch.__version__,

@@ -492,6 +492,13 @@ def _gather(x, dim: int, group):
     return funcol.wait_tensor(gather(x, dim, group))
 
 
+def _reduce_scatter(x, dim: int, group):
+    from torch.distributed import _functional_collectives as funcol
+    scatter = getattr(funcol, "reduce_scatter_single", None) or \
+        funcol.reduce_scatter_tensor
+    return funcol.wait_tensor(scatter(x, "sum", dim, group))
+
+
 class _GatheredMatmuls(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, lo, whole, *ws):
@@ -501,7 +508,6 @@ class _GatheredMatmuls(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        from torch.distributed import _functional_collectives as funcol
         x, *ws = ctx.saved_tensors
         if ctx.whole:
             grads = [g[:, ctx.lo:ctx.lo + x.shape[1]] for g in grads]
@@ -509,11 +515,8 @@ class _GatheredMatmuls(torch.autograd.Function):
             dx = sum(g @ w.T for g, w in zip(grads, ws))
         else:
             rows = _gather(x, ctx.dim, ctx.group).flatten(0, 1)
-            scatter = getattr(funcol, "reduce_scatter_single", None) or \
-                funcol.reduce_scatter_tensor
-            dx = funcol.wait_tensor(scatter(
-                sum(g @ w.T for g, w in zip(grads, ws)), "sum", ctx.dim,
-                ctx.group))
+            dx = _reduce_scatter(sum(g @ w.T for g, w in zip(grads, ws)),
+                                 ctx.dim, ctx.group)
         return (dx, None, None, None, None,
                 *(rows.T @ g.flatten(0, 1) for g in grads))
 
@@ -756,8 +759,15 @@ def _moe_routed(local, x, top_p, top_e, ws):
     buffers place them (``"batch"``, ``"expert"``):
 
     * a dim that splits the batch rows keeps x, the router's choices and
-      the output split on them and gathers the experts' weights, whose
-      gradients are partial sums;
+      the output split on them; the experts' weights are whole in the
+      products and their gradients are summed over the dim. Where the dim
+      splits each weight along another dim than the experts' (d_model,
+      ``fsdp``), ``local`` gets the shards and ``gather``, the dim's group
+      and the split dims: each weight is gathered inside its product, in
+      the forward and again in the backward pass, and its gradient is
+      reduce-scattered to the shard there (``_expert_ffn``; one such mesh
+      dim); else the weights are gathered before and their gradients are
+      partial sums;
     * a dim that splits the experts (E / M each, from expert ``lo``) keeps
       x and the router's choices whole and the weights split; each rank
       dispatches to and combines from its own experts only, so the output
@@ -776,45 +786,140 @@ def _moe_routed(local, x, top_p, top_e, ws):
     mesh = x.device_mesh
     rows = placements(("batch", None, None), x.shape)
     experts = placements(("expert", None, None), ws[0].shape)
-    x_pl, x_grad, w_pl, w_grad = list(rows), [], [], []
-    for pr, pe in zip(rows, experts):
+    x_grad, w_pl, w_grad, gather = [], [], [], None
+    for i, (pr, pe) in enumerate(zip(rows, experts)):
         if pr.is_shard(0):
             x_grad.append(Shard(0))
-            w_pl.append(Replicate())
-            w_grad.append(Partial())
+            pls = [w.placements[i] for w in ws]
+            if gather is None and mesh.size(i) > 1 and all(
+                    pl.is_shard() and not pl.is_shard(0) for pl in pls):
+                gather = (mesh.get_group(i), tuple(pl.dim for pl in pls))
+                grads = pls
+            else:
+                pls, grads = [Replicate()] * 3, [Partial()] * 3
         elif pe.is_shard(0):
             x_grad.append(Partial())
-            w_pl.append(Shard(0))
-            w_grad.append(Shard(0))
+            pls = grads = [Shard(0)] * 3
         else:
             x_grad.append(Replicate())
-            w_pl.append(Replicate())
-            w_grad.append(Replicate())
-    top_p, top_e = (t.redistribute(mesh, x_pl) for t in (top_p, top_e))
-    ws = [w.redistribute(mesh, w_pl) for w in ws]
-    fn = functools.partial(local, lo=_shard_offset(mesh, w_pl, 0,
-                                                   ws[0].shape[0]))
+            pls = grads = [Replicate()] * 3
+        w_pl.append(pls)
+        w_grad.append(grads)
+    w_pl, w_grad = list(zip(*w_pl)), list(zip(*w_grad))   # by weight
+    top_p, top_e = (t.redistribute(mesh, rows) for t in (top_p, top_e))
+    ws = [_placed(w, pl) for w, pl in zip(ws, w_pl)]
+    fn = functools.partial(local, lo=_shard_offset(mesh, w_pl[0], 0,
+                                                   ws[0].shape[0]),
+                           gather=gather)
     return local_map(fn, out_placements=x_grad,
-                     in_placements=(x_pl, x_pl, x_pl) + (w_pl,) * 3,
-                     in_grad_placements=(x_grad, x_grad, x_pl)
-                     + (w_grad,) * 3,
-                     device_mesh=mesh)(_placed(x, x_pl), top_p, top_e, *ws)
+                     in_placements=(rows, rows, rows) + tuple(w_pl),
+                     in_grad_placements=(x_grad, x_grad, rows)
+                     + tuple(w_grad),
+                     device_mesh=mesh)(_placed(x, rows), top_p, top_e, *ws)
 
 
-def _expert_ffn(xin, w1, w3, w2, act):
-    hcur = act(torch.einsum("becd,edf->becf", xin, w1))
-    hcur = hcur * torch.einsum("becd,edf->becf", xin, w3)
-    return torch.einsum("becf,efd->becd", hcur, w2)
+def _expert_ffn(xe, w1, w3, w2, act, gather=None):
+    """The experts' gated FFN on their rows ``xe`` (n, T, D), expert by
+    expert: (n, T, D). Only ``xe`` and the two hidden products are held for
+    the backward pass, which recomputes the gate's activation and its
+    gradient a slice of rows at a time (``_GATE_SLICES``). With ``gather`` (a process group and the dim of each weight that it
+    splits) the weights are this rank's shards: each is gathered inside its
+    product, in the forward and again in the backward pass, and its
+    gradient comes back reduce-scattered to the shard."""
+    return _ExpertFFN.apply(xe, w1, w3, w2, act, gather)
+
+
+# The backward pass's gate work runs on this many slices of the rows, so
+# that its temporaries (the activation's autograd graph) stay a fraction of
+# a hidden product's size; the forward pass, which holds none of them, runs
+# it whole.
+_GATE_SLICES = 8
+
+
+def _row_slices(t):
+    step = -(-t.shape[1] // _GATE_SLICES)
+    return [slice(i, i + step) for i in range(0, t.shape[1], step)]
+
+
+def _gated(act, h1, h3):
+    """``act(h1) * h3``, a slice of rows at a time."""
+    out = torch.empty_like(h1)
+    for sl in _row_slices(h1):
+        out[:, sl] = act(h1[:, sl]) * h3[:, sl]
+    return out
+
+
+def _gated_grads(act, h1, h3, g):
+    """The gradients of ``act(h1) * h3`` for the gradient ``g``: (of h1, of
+    h3), a slice of rows at a time."""
+    gh1, gh3 = torch.empty_like(h1), torch.empty_like(h3)
+    for sl in _row_slices(h1):
+        with torch.enable_grad():
+            h = h1[:, sl].detach().requires_grad_()
+            a = act(h)
+        gh3[:, sl] = g[:, sl] * a.detach()
+        (gh1[:, sl],) = torch.autograd.grad(a, h, g[:, sl] * h3[:, sl])
+    return gh1, gh3
+
+
+def _whole(w, j: int, gather):
+    """Weight ``j`` (w1, w3, w2) whole: gathered where ``gather`` splits
+    it."""
+    return w if gather is None else _gather(w, gather[1][j], gather[0])
+
+
+def _shard_grad(g, j: int, gather):
+    """The gradient ``g`` of weight ``j`` whole, reduce-scattered to the
+    shard where ``gather`` splits the weight."""
+    return g if gather is None else _reduce_scatter(g, gather[1][j],
+                                                    gather[0])
+
+
+class _ExpertFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xe, w1, w3, w2, act, gather):
+        h1 = torch.bmm(xe, _whole(w1, 0, gather))
+        h3 = torch.bmm(xe, _whole(w3, 1, gather))
+        ctx.save_for_backward(xe, h1, h3, w1, w3, w2)
+        ctx.act, ctx.gather = act, gather
+        return torch.bmm(act(h1) * h3, _whole(w2, 2, gather))
+
+    @staticmethod
+    def backward(ctx, gy):
+        xe, h1, h3, w1, w3, w2 = ctx.saved_tensors
+        need, gather = ctx.needs_input_grad, ctx.gather
+        gw1 = gw3 = gw2 = gxe = None
+        if need[3]:
+            gw2 = _shard_grad(_gated(ctx.act, h1, h3).transpose(1, 2)
+                              .bmm(gy), 2, gather)
+        gh = torch.bmm(gy, _whole(w2, 2, gather).transpose(1, 2))
+        gh1, gh3 = _gated_grads(ctx.act, h1, h3, gh)
+        del gh
+        if need[0]:
+            gxe = torch.bmm(gh1, _whole(w1, 0, gather).transpose(1, 2))
+            gxe = gxe + torch.bmm(gh3, _whole(w3, 1, gather).transpose(1, 2))
+        if need[1]:
+            gw1 = _shard_grad(xe.transpose(1, 2).bmm(gh1), 0, gather)
+        if need[2]:
+            gw3 = _shard_grad(xe.transpose(1, 2).bmm(gh3), 1, gather)
+        return gxe, gw1, gw3, gw2, None, None
 
 
 def _moe_sort_local(x, top_p, top_e, w1, w3, w2, *, cap: int, act,
-                    lo: int):
+                    lo: int, gather=None):
     """Sort-based dispatch, one group a batch row: gathers/scatter-adds
     instead of one-hot matmuls, into and out of the buffers of experts
-    ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D)); the
-    sort runs over every expert, so each entry's buffer position is the
-    one it has among all E. Returns these experts' share of the output
-    (B, S, D): all of it where they are all E."""
+    ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D), or their
+    shards with ``gather``, ``_expert_ffn``); the sort runs over every
+    expert, so each entry's buffer position is the one it has among all
+    E. Returns these experts' share of the output (B, S, D): all of it
+    where they are all E.
+
+    The buffers are expert-major, (n, B * C, D), so the FFN reads them in
+    place. The dispatch and the combine (``_SortDispatch``,
+    ``_SortCombine``) go by buffer row: each row's token and gate, from
+    the sort's entries, so no (B, S * k, D) rows are made, and only these
+    indices and gates are held for the backward pass."""
     b, s, d = x.shape
     k = top_e.shape[-1]
     n = w1.shape[0]
@@ -829,49 +934,108 @@ def _moe_sort_local(x, top_p, top_e, w1, w3, w2, *, cap: int, act,
     pos = torch.arange(s * k, device=x.device) - torch.searchsorted(
         se, se, side="left")
     keep = (pos < cap) & (se >= lo) & (se < lo + n)
-    dest = torch.where(keep, (se - lo) * cap + pos, n * cap)   # overflow slot
-    keep_x = keep[..., None].to(x.dtype)
-    rows = torch.gather(x, 1, st[..., None].expand(b, s * k, d)) * keep_x
-    buf = torch.zeros(b, n * cap + 1, d, dtype=x.dtype, device=x.device)
-    buf.scatter_(1, dest[..., None].expand(b, s * k, d), rows)
-    xin = buf[:, :-1].reshape(b, n, cap, d)
-    yout = _expert_ffn(xin, w1, w3, w2, act)                   # (B,n,C,D)
-    ybuf = torch.cat([yout.reshape(b, n * cap, d),
-                      torch.zeros(b, 1, d, dtype=x.dtype, device=x.device)],
-                     dim=1)
-    contrib = torch.gather(ybuf, 1, dest[..., None].expand(b, s * k, d)) \
-        * (sg[..., None].to(x.dtype) * keep_x)
-    out = torch.zeros(b, s, d, dtype=x.dtype, device=x.device)
-    out.scatter_add_(1, st[..., None].expand(b, s * k, d), contrib)
-    return out
+    row = torch.arange(b, device=x.device)[:, None]
+    # each entry's buffer row in (n, B, C) order; a dropped one's: rows
+    rows = n * b * cap
+    slot = torch.where(keep, ((se - lo) * b + row) * cap + pos,
+                       rows).flatten()
+    # each buffer row's token (of x's B * S rows; B * S where it is empty)
+    # and gate, the overflow row dropped
+    tok = torch.full((rows + 1,), b * s, dtype=slot.dtype,
+                     device=x.device).index_put_(
+        (slot,), (st + row * s).flatten())[:-1]
+    sg = sg.to(x.dtype).flatten()
+    gate = sg.new_zeros(rows + 1).index_put((slot,), sg)[:-1]
+    xe = _SortDispatch.apply(x.reshape(b * s, d), tok)
+    y = _expert_ffn(xe.view(n, b * cap, d), w1, w3, w2, act, gather)
+    return _SortCombine.apply(y.view(rows, d), gate, tok,
+                              b * s).view(b, s, d)
+
+
+def _rows_or_zero(t, idx):
+    """The rows ``idx`` of ``t`` (N, D), a row of zeros where ``idx`` is
+    N (an empty buffer row's token)."""
+    out = t.index_select(0, idx.clamp(max=t.shape[0] - 1))
+    return out.masked_fill_((idx == t.shape[0])[:, None], 0)
+
+
+class _SortDispatch(torch.autograd.Function):
+    """The buffer rows: the rows ``tok`` of x (N, D), zero where ``tok``
+    is N."""
+
+    @staticmethod
+    def forward(ctx, x, tok):
+        ctx.save_for_backward(tok)
+        ctx.rows = x.shape[0]
+        return _rows_or_zero(x, tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        gx = g.new_zeros(ctx.rows + 1, g.shape[1]).index_add_(0, tok, g)
+        return gx[:-1], None
+
+
+class _SortCombine(torch.autograd.Function):
+    """The buffer rows ``y``, each times its ``gate``, added into the
+    output's rows ``tok`` (an empty buffer row's token is ``rows``, which
+    is dropped) of a zeroed (rows, D)."""
+
+    @staticmethod
+    def forward(ctx, y, gate, tok, rows: int):
+        ctx.save_for_backward(y, gate, tok)
+        out = y.new_zeros(rows + 1, y.shape[1]).index_add_(
+            0, tok, y * gate[:, None])
+        return out[:-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        y, gate, tok = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grows = _rows_or_zero(g, tok)
+        ggate = (grows * y).sum(-1) if need[1] else None
+        gy = grows.mul_(gate[:, None]) if need[0] else None
+        return gy, ggate, None, None
 
 
 def _moe_einsum_local(x, top_p, top_e, w1, w3, w2, *, cap: int, act,
-                      lo: int):
+                      lo: int, gather=None):
     """Capacity-based top-k routing with einsum dispatch/combine, on
-    experts ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D)):
-    their share of the output (B, S, D), all of it where they are all E.
+    experts ``[lo, lo + n)`` (``w1``/``w3`` (n, D, F), ``w2`` (n, F, D),
+    or their shards with ``gather``, ``_expert_ffn``): their share of the
+    output (B, S, D), all of it where they are all E.
 
     Tokens grouped by batch row (group = one sequence): capacity
     C = ceil(S * k / E * capacity_factor). Each expert's buffer positions
-    depend on its own column of the routing only."""
+    depend on its own column of the routing only. The one-hot products
+    run on the masks' own layout, (B, S, C, n), flattened, which needs no
+    copy of them and contracts the combine in the order the reference's
+    einsum does; the expert buffers are copied once each way between the
+    rows' layout (B, C, n, D) and the experts' (n, B * C, D)."""
+    b, s, d = x.shape
     n = w1.shape[0]
-    # Position of each (token, choice) in its expert's buffer.
+    disp, comb = _einsum_routing(top_p, top_e, lo, n, cap, x.dtype)
+    xe = torch.einsum("bsk,bsd->bkd", disp.flatten(2), x)     # (B,Cn,D)
+    xe = xe.view(b, cap, n, d).permute(2, 0, 1, 3).reshape(n, b * cap, d)
+    y = _expert_ffn(xe, w1, w3, w2, act, gather)
+    y = y.view(n, b, cap, d).permute(1, 2, 0, 3).reshape(b, cap * n, d)
+    return torch.einsum("bsk,bkd->bsd", (disp * comb[:, :, None]).flatten(2),
+                        y)
+
+
+def _einsum_routing(top_p, top_e, lo: int, n: int, cap: int, dtype):
+    """The one-hot dispatch mask (B, S, C, n) of experts ``[lo, lo + n)``
+    in ``dtype``, and each token's gate for them (B, S, n)."""
     onehot = (top_e[..., None] == torch.arange(
-        lo, lo + n, device=x.device)).float()                  # (B,S,k,n)
+        lo, lo + n, device=top_e.device)).float()              # (B,S,k,n)
     comb = (onehot * top_p[..., None]).sum(2)                  # (B,S,n)
     mask = onehot.sum(2)                                       # (B,S,n) 0/1
     pos = torch.cumsum(mask, dim=1) - 1.0                      # (B,S,n)
     keep = (pos < cap) & (mask > 0)
     # a one-hot row of zeros for pos = -1 or pos >= cap, as jax.nn.one_hot
-    pos_oh = (pos.to(torch.int32)[..., None]
-              == torch.arange(cap, device=x.device)).to(x.dtype)
-    disp = pos_oh * keep[..., None].to(x.dtype)                # (B,S,n,C)
-
-    xin = torch.einsum("bsec,bsd->becd", disp, x)              # (B,n,C,D)
-    eout = _expert_ffn(xin, w1, w3, w2, act)
-    return torch.einsum("becd,bsec->bsd", eout,
-                        disp * comb.to(x.dtype)[..., None])
+    pos_oh = (pos.to(torch.int32)[:, :, None]
+              == torch.arange(cap, device=top_e.device)[:, None]).to(dtype)
+    return pos_oh * keep[:, :, None].to(dtype), comb.to(dtype)
 
 
 def moe_aux_loss(p, x, cfg):
