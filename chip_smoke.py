@@ -176,8 +176,11 @@ Phases, each printing one JSON line:
                base cells' peaks at 1 and 2 layers within
                ``RECURRENT_LAYER_PEAK``; and the narrow cases of
                ``scripts/torch_narrow_sharding.py`` (the SSD, the RG-LRU,
-               the router, the tied head and dbrx's MoE under both
-               dispatches on (2, 4), mamba2's head at full width), each
+               the router, the tied head, dbrx's MoE under both
+               dispatches, qwen3's attention and MLP and gemma2's
+               attention on (2, 4); mamba2's head and the attention of
+               gemma2-2b, minitron-4b and musicgen-medium at full width
+               on (16, 16)), each
                peak within 1.15x of the reference's (the SSD's 0.90x;
                ``NARROW_REFERENCE_PEAKS``), the ratios
                printed on a line of their own. (a) to (d) run side by
@@ -2351,12 +2354,14 @@ RECURRENT_LAYER_PEAK = {"mamba2-1.3b": (30_490_966_315, 30_490_966_315),
 # (d): the reference's per-device peak (``memory_analysis()``: arguments,
 # outputs and temporaries less aliases) of each case of
 # ``scripts/torch_narrow_sharding.py``, compiled on a (2, 4) mesh of XLA
-# CPU devices (mamba2-1.3b's head at full width on (16, 16)) by
-# ``python tests/test_torch_sharded_recurrent.py`` (the card machine has no
-# JAX); the port's must stay within NARROW_PEAK_RATIO of it, the SSD's
-# within NARROW_SSM_PEAK_RATIO. The MoE's cases read up to 1.58x (einsum
-# dispatch) and 1.30x (sort) before each expert weight was gathered inside
-# its product and the dispatched rows were no longer held scaled.
+# CPU devices (mamba2-1.3b's head and three archs' attention at full width
+# on (16, 16)) by ``python tests/test_torch_sharded_recurrent.py`` (the
+# card machine has no JAX); the port's must stay within NARROW_PEAK_RATIO
+# of it, the SSD's within NARROW_SSM_PEAK_RATIO. The MoE's cases read up
+# to 1.58x (einsum dispatch) and 1.30x (sort) before each expert weight was
+# gathered inside its product and the dispatched rows were no longer held
+# scaled; gemma2's attention up to 1.22x before K and V were laid out once
+# for every query chunk.
 NARROW_REFERENCE_PEAKS = {
     "ssm/base/params": 2_664_168,
     "ssm/base/params_x": 2_768_624,
@@ -2400,9 +2405,30 @@ NARROW_REFERENCE_PEAKS = {
     "moe_sort/zero_r/params_x": 1_302_536,
     "moe_sort/seq_sp/params": 983_232,
     "moe_sort/seq_sp/params_x": 1_090_312,
+    "attention/base/params": 725_728,
+    "attention/base/params_x": 824_104,
+    "attention/zero_r/params": 694_944,
+    "attention/zero_r/params_x": 793_320,
+    "attention/seq_sp/params": 1_233_568,
+    "attention/seq_sp/params_x": 1_348_328,
+    "mlp/base/params": 647_216,
+    "mlp/base/params_x": 794_744,
+    "mlp/zero_r/params": 630_832,
+    "mlp/zero_r/params_x": 778_360,
+    "mlp/seq_sp/params": 647_216,
+    "mlp/seq_sp/params_x": 745_656,
+    "attention_gemma2/base/params": 1_817_760,
+    "attention_gemma2/base/params_x": 2_079_912,
+    "attention_gemma2/zero_r/params": 1_817_696,
+    "attention_gemma2/zero_r/params_x": 2_030_696,
+    "attention_gemma2/seq_sp/params": 1_867_056,
+    "attention_gemma2/seq_sp/params_x": 2_129_208,
     "full/mamba2-1.3b/base": 26_513_883_752,
     "full/mamba2-1.3b/zero_r": 26_513_883_752,
-    "full/mamba2-1.3b/seq_sp": 27_312_492_584}
+    "full/mamba2-1.3b/seq_sp": 27_312_492_584,
+    "full/attention_gemma2-2b/base": 43_065_803_744,
+    "full/attention_minitron-4b/base": 71_848_428_240,
+    "full/attention_musicgen-medium/base": 71_362_413_136}
 NARROW_PEAK_RATIO, NARROW_SSM_PEAK_RATIO = 1.15, 0.90
 # Operands that span a dim the reference splits: mamba2's whole in_proj
 # width (8,512) or d_inner (4,096); a whole d_model x rnn_width block of

@@ -1,6 +1,6 @@
-"""The sharded step's recurrent layers, router, tied logits and MoE at a
-narrow width on the port: per-device matmul FLOPs and peak bytes of each
-product group under a (data 2, model 4) mesh of fake ranks.
+"""The sharded step's recurrent layers, router, tied logits, MoE, attention
+and MLP at a narrow width on the port: per-device matmul FLOPs and peak
+bytes of each product group under a (data 2, model 4) mesh of fake ranks.
 
     PYTHONPATH=src python scripts/torch_narrow_sharding.py [--out FILE]
 
@@ -11,7 +11,9 @@ bytes it allocates and its inputs' local shards (each storage counted
 once, as the dry run counts them); then, under each rule set, the FLOPs
 of the products of the tied table in mamba2-1.3b's one-layer
 ``train_4k`` dry run on (16, 16) (``head_full_port``) and the peak of
-that head alone at full width (``FULL_HEAD``).
+that head alone at full width (``FULL_HEAD``); then the FLOPs and the
+peak of the attention of ``FULL_ATTENTION`` at full width under the base
+rules, for the parameters.
 ``tests/test_torch_sharded_recurrent.py`` holds these against the
 reference's compiled HLO; run as a script it prints both side by side.
 
@@ -23,12 +25,11 @@ experts); the tied head (final norm, logits, the loss's logsumexp and
 gold logit) with a vocab of 512, which ``model`` divides, and of 514,
 which it does not; dbrx's MoE under both dispatches (the width of
 ``tests/test_torch_sharded_moe.py``: 8 experts, top 2, d_ff_expert 64,
-capacity 20). Each under the base rules and the ``zero_r`` and
-``seq_sp`` variants; the gradient of the parameters, and of the
-parameters and the input. With ``--other`` it measures instead
-``OTHER_LAYERS``: qwen3's attention and MLP (the narrow widths of
-``tests/test_torch_sharded_projections.py``), dbrx's MoE, and gemma2-2b's
-attention with its heads whole on ``model`` and its softcap; with
+capacity 20); qwen3's attention and MLP (the narrow widths of
+``tests/test_torch_sharded_projections.py``); gemma2-2b's attention with
+its heads whole on ``model``, its softcap and its sequence in 8 chunks.
+Each under the base rules and the ``zero_r`` and ``seq_sp`` variants; the
+gradient of the parameters, and of the parameters and the input. With
 ``--live`` it adds to each line the largest groups of storages live at
 the peak. It needs only torch.
 """
@@ -70,20 +71,27 @@ NARROW = {
     "attention_gemma2": ("gemma2-2b", dict(d_model=128, n_heads=6, n_kv=3,
                                            head_dim=32, d_ff=384,
                                            attn_chunk=8)),
+    # The attention at full width (``FULL_ATTENTION``): the heads of all
+    # three whole on ``model``, the sequence in 8 chunks of 512.
+    "attention_gemma2-2b": ("gemma2-2b", {}),
+    "attention_minitron-4b": ("minitron-4b", {}),
+    "attention_musicgen-medium": ("musicgen-medium", {}),
 }
 # Layers whose peaks are held to the reference's beside those of
 # ``cases()``, which also have their dots held (``peak_cases``).
-PEAK_LAYERS = LAYERS + ("moe_einsum", "moe_sort")
-# Layers measured beside those: their peaks, a record (``other_cases``).
-OTHER_LAYERS = ("attention", "mlp", "moe_einsum", "moe_sort",
-                "attention_gemma2")
+PEAK_LAYERS = LAYERS + ("moe_einsum", "moe_sort", "attention", "mlp",
+                        "attention_gemma2")
 
+# train_4k's batch on (data 16, model 16), for the cases at full width.
+FULL_SHAPE = dict(mesh_shape=(16, 16), batch=256, seq=4096)
 # The tied head at mamba2-1.3b's full width (d_model 2,048, vocab 50,280,
-# which ``model`` does not divide), train_4k's batch on (data 16, model 16):
-# ``port(FULL_HEAD, rules, "params_x", **FULL_HEAD_SHAPE)``.
+# which ``model`` does not divide): ``port(FULL_HEAD, rules, "params_x",
+# **FULL_SHAPE)``.
 FULL_HEAD = "head_full"
-FULL_HEAD_SHAPE = dict(mesh_shape=(16, 16), batch=256, seq=4096)
-
+# The attention of three archs at full width, f32: ``port(layer, "base",
+# "params", **FULL_SHAPE)``.
+FULL_ATTENTION = ("attention_gemma2-2b", "attention_minitron-4b",
+                  "attention_musicgen-medium")
 
 
 def cases(layers=LAYERS):
@@ -93,10 +101,6 @@ def cases(layers=LAYERS):
 
 def peak_cases():
     return cases(PEAK_LAYERS)
-
-
-def other_cases():
-    return cases(OTHER_LAYERS)
 
 
 def narrow_cfg(layer: str):
@@ -254,8 +258,6 @@ def port_live(layer: str, rules_name: str, wrt: str, top: int = 12,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the lines here")
-    ap.add_argument("--other", action="store_true",
-                    help="measure OTHER_LAYERS instead")
     ap.add_argument("--live", action="store_true",
                     help="add the storages live at each case's peak")
     args = ap.parse_args(argv)
@@ -264,13 +266,16 @@ def main(argv=None) -> int:
     run = port_live if args.live else port
     lines = [json.dumps({"case": "/".join(c), "torch": torch.__version__,
                          **run(*c)})
-             for c in (other_cases() if args.other else peak_cases())]
-    if not args.other:
-        lines += [json.dumps({
-            "case": f"full/mamba2-1.3b/{rules}", "torch": torch.__version__,
-            "flops": head_full_port(rules),
-            **run(FULL_HEAD, rules, "params_x", **FULL_HEAD_SHAPE)})
-            for rules in RULES]
+             for c in peak_cases()]
+    lines += [json.dumps({
+        "case": f"full/mamba2-1.3b/{rules}", "torch": torch.__version__,
+        "flops": head_full_port(rules),
+        **run(FULL_HEAD, rules, "params_x", **FULL_SHAPE)})
+        for rules in RULES]
+    lines += [json.dumps({"case": f"full/{layer}/base",
+                          "torch": torch.__version__,
+                          **run(layer, "base", "params", **FULL_SHAPE)})
+              for layer in FULL_ATTENTION]
     print("\n".join(lines))
     if args.out:
         Path(args.out).write_text("\n".join(lines) + "\n")

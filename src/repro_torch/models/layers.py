@@ -102,20 +102,30 @@ def _chunked_attention(q, k, v, *, q_positions, kv_positions, window, cap,
     q_positions: (Sq,) int32; kv_positions: (Skv,) int32 (ring caches carry
     stale slots with very negative positions -> masked automatically).
     Returns (B, Sq, Hkv, G, dh). Scores are per-chunk f32 (never (S, S)).
+
+    K and V are laid out for the products once, f32 K as (B Hkv, dh, Skv)
+    and V as (B Hkv, Skv, dh), and every chunk multiplies views of them,
+    its query rows grouped as (B Hkv, G c, dh): autograd keeps one copy
+    of K and V for all chunks and no permuted copy of the probabilities,
+    and only each chunk's output is permuted.
     """
     b, sq, hkv, g, dh = q.shape
+    skv = k.shape[1]
     scale = 1.0 / math.sqrt(dh)
     chunk = min(chunk, sq)
     if sq % chunk != 0:  # ragged (smoke-test) sizes: single chunk
         chunk = sq
     n_chunks = max(sq // chunk, 1)
-    k32, v32 = k.float(), v.float()
+    kt = _f32_contiguous(k.permute(0, 2, 3, 1)).view(b * hkv, dh, skv)
+    v32 = _f32_contiguous(v.permute(0, 2, 1, 3)).view(b * hkv, skv, dh)
     kv_pos = kv_positions[None, :]
     outs = []
     for c in range(n_chunks):
-        qc = q[:, c * chunk:(c + 1) * chunk].float()
+        qc = _f32_contiguous(q[:, c * chunk:(c + 1) * chunk]
+                             .permute(0, 2, 3, 1, 4)).view(b * hkv,
+                                                           g * chunk, dh)
         q_pos = q_positions[c * chunk:(c + 1) * chunk, None]
-        s = torch.einsum("bchgd,bshd->bhgcs", qc, k32) * scale
+        s = torch.bmm(qc, kt).view(b, hkv, g, chunk, skv) * scale
         if cap is not None:
             s = softcap(s, cap)
         causal = (kv_pos <= q_pos) & (kv_pos >= 0)  # unwritten ring slots < 0
@@ -123,9 +133,16 @@ def _chunked_attention(q, k, v, *, q_positions, kv_positions, window, cap,
             causal &= kv_pos > (q_pos - window)
         s = torch.where(causal, s, -1e30)
         p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgcs,bshd->bchgd", p, v32)
-        outs.append(out.to(q.dtype))
+        out = torch.bmm(p.view(b * hkv, g * chunk, skv), v32)
+        outs.append(out.view(b, hkv, g, chunk, dh).permute(0, 3, 1, 2, 4)
+                    .to(q.dtype))
     return outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+
+
+def _f32_contiguous(t):
+    """``t`` in f32, contiguous, in one copy at most."""
+    return t.to(torch.float32, memory_format=torch.contiguous_format) \
+        .contiguous()
 
 
 def _attention(q, k, v, **kw):

@@ -10,12 +10,13 @@ reduce-scattered to the residual stream's placements.
     and ``mlp_apply`` compiled on a (data 2, model 4) mesh of 8 CPU devices
     (a subprocess; ``AxisType.Auto`` axes) at a narrow qwen3-like width
     whose heads and d_ff divide 4 and whose kv heads do not; the dots'
-    FLOPs read from the partitioned HLO. The same layers on a fake 8-rank
-    (2, 4) mesh under the dry run's ``DeviceCost``: per-device matmul
-    FLOPs within 1% of the reference's, for the parameters' gradients, and
-    for the MLP also with the input's. With the input's gradient the
-    reference's GSPMD computes K/V's whole (T, d) on every rank; the port
-    computes its split, so it reads less there.
+    FLOPs read from the partitioned HLO (``tests/hlo_dots.py``; at this
+    length the attention runs in one chunk, in no loop). The same layers
+    on a fake 8-rank (2, 4) mesh under the dry run's ``DeviceCost``:
+    per-device matmul FLOPs within 1% of the reference's, for the
+    parameters' gradients, and for the MLP also with the input's. With the
+    input's gradient the reference's GSPMD computes K/V's whole (T, d) on
+    every rank; the port computes its split, so it reads less there.
 (b) qwen3-0.6b's ``train_4k`` dry run on (data 16, model 16) at 1 and 2
     layers: the layer's products (2 layers minus 1) have no full head
     (H x dh = 2048) or d_ff (3072) dim, and its FLOPs are at most 1.05 x
@@ -58,15 +59,16 @@ MESH_A = (2, 4)
 BATCH_A, SEQ_A = 4, 64
 
 _REFERENCE_DOTS = r"""
-import json, os, re, sys
+import json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import dataclasses
-import jax, jax.numpy as jnp, numpy as np
+import jax, jax.numpy as jnp
 from jax.sharding import AxisType
 from repro.configs import get_config
 from repro.launch.dryrun import arch_rules
 from repro.models import layers as RL
 from repro.sharding import rules as RR
+from hlo_dots import dots
 
 narrow, (data, model), batch, seq = json.loads(sys.argv[1])
 cfg = dataclasses.replace(get_config("qwen3-0.6b"), **narrow)
@@ -85,21 +87,6 @@ layers = {
             lambda p, x: RL.mlp_apply(p, x, cfg)),
 }
 
-
-def dot_flops(hlo):
-    shapes = {m.group(1): [int(v) for v in m.group(2).split(",") if v]
-              for m in re.finditer(r"%([\w.\-]+) = \w+\[([0-9,]*)\]", hlo)}
-    total = 0
-    for m in re.finditer(r"= \w+\[([0-9,]*)\]\S* dot\(%([\w.\-]+), "
-                         r"%[\w.\-]+\).*?lhs_contracting_dims=\{([0-9,]*)\}",
-                         hlo):
-        out = [int(v) for v in m.group(1).split(",") if v]
-        lhs = shapes[m.group(2)]
-        k = int(np.prod([lhs[int(i)] for i in m.group(3).split(",") if i]))
-        total += 2 * int(np.prod(out)) * k
-    return total
-
-
 res = {}
 for name, (shapes, axes, apply) in layers.items():
     p = {k: jax.ShapeDtypeStruct(s, jnp.float32,
@@ -110,8 +97,8 @@ for name, (shapes, axes, apply) in layers.items():
         ("batch", None, "blk_in_embed"), xs))
     for wrt, argnums in (("params", 0), ("params_x", (0, 1))):
         grad = jax.grad(lambda p, x: jnp.sum(apply(p, x) ** 2), argnums)
-        res[f"{name}/{wrt}"] = dot_flops(
-            jax.jit(grad).lower(p, x).compile().as_text())
+        res[f"{name}/{wrt}"] = dots(
+            jax.jit(grad).lower(p, x).compile().as_text())[0]
 print(json.dumps(res))
 """
 
@@ -122,8 +109,8 @@ def _narrow_cfg():
 
 @pytest.fixture(scope="module")
 def _reference_dots():
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
     out = subprocess.run(
         [sys.executable, "-c", _REFERENCE_DOTS,
          json.dumps([NARROW, MESH_A, BATCH_A, SEQ_A])],

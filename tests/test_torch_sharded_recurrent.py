@@ -4,38 +4,51 @@ placements give it (``models/layers.py::_project``).
 
 (a) The reference's per-device dots: ``jax.grad`` of mamba2's
     ``ssm_apply``, recurrentgemma's ``rglru_apply``, dbrx's
-    ``_moe_router`` and the tied head with the loss's tail (a vocab of
-    512, which ``model`` divides, and of 514, which it does not), for the
-    parameters and for the parameters and the input, under the base rules
-    and the ``zero_r`` and ``seq_sp`` variants, compiled on a (data 2,
-    model 4) mesh of 8 CPU devices (a subprocess; ``AxisType.Auto`` axes)
-    at a narrow width; the dots' FLOPs read from the partitioned HLO. The
-    same on a fake 8-rank (2, 4) mesh under the dry run's ``DeviceCost``
+    ``_moe_router``, the tied head with the loss's tail (a vocab of 512,
+    which ``model`` divides, and of 514, which it does not) and gemma2's
+    attention with its heads whole on ``model`` (its chunks in a scan),
+    for the parameters and for the parameters and the input, under the
+    base rules and the ``zero_r`` and ``seq_sp`` variants, compiled on a
+    (data 2, model 4) mesh of 8 CPU devices (a subprocess;
+    ``AxisType.Auto`` axes) at a narrow width; the dots' FLOPs read from
+    the partitioned HLO, each dot once for every run of its computation,
+    a loop's body once a trip (``tests/hlo_dots.py``). The same on a fake
+    8-rank (2, 4) mesh under the dry run's ``DeviceCost``
     (``scripts/torch_narrow_sharding.py``): the per-device matmul FLOPs
     within 1% of the reference's. For the SSD the projections are its 2-D
     products (``in_proj``, ``out_proj``; the scan's einsums are contracted
-    in another order by the two compilers). Two exceptions, where the
-    port reads one product's (M - 1) / M less: the reference computes the
-    router's input gradient whole from the gathered router on every
-    ``model`` rank, the port on its d_model split; and under ``seq_sp``
-    with a vocab ``model`` does not divide the reference computes the
-    table's gradient whole on every rank at this width, from each rank's
-    own tokens at full width, as the port does at both. mamba2's head at
-    full width equals the reference's dots compiled on 256 devices under
-    the base rules and ``seq_sp``. Before these placements were stated
-    the SSD's ``in_proj`` gradient under ``zero_r`` read 4x (all its
-    columns on every rank), the router under ``zero_r`` 0.62x and 0.50x,
-    and the head had no function of its own. Each rank's peak (its
-    allocations and its inputs' shards, each storage counted once) is at
-    most 1.15x the reference's ``memory_analysis()`` (the SSD's 0.90x),
-    mamba2's head at full width too, and so is dbrx's MoE (8 experts, top
-    2, d_ff_expert 64) under both dispatches (``_expert_ffn``, the sort's
-    dispatch and combine by buffer row): the RG-LRU scans each rank's rows
-    and channels, the router routes each rank's rows, the loss holds no
-    f32 copy of the logits, and the MoE gathers each expert weight inside
-    its product and keeps no scaled or gathered copy of the dispatched
-    rows (before: up to 1.83x, 2.06x and 1.76x; the MoE 1.58x under the
-    einsum dispatch, 1.30x under the sort dispatch).
+    in another order by the two compilers). Where the port reads (M - 1)
+    / M of one product less: the reference computes the router's input
+    gradient whole from the gathered router on every ``model`` rank, the
+    port on its d_model split; under ``seq_sp`` with a vocab ``model``
+    does not divide the reference computes the table's gradient whole on
+    every rank at this width, from each rank's own tokens at full width,
+    as the port does at both; in gemma2's attention the reference computes
+    the q/k/v input gradient whole on every ``model`` rank, and under
+    ``zero_r`` (the block input whole on d_model) the q/k/v projection and
+    its weight gradient too, where the port computes each on its split.
+    mamba2's head at full width equals the reference's dots compiled on
+    256 devices under the base rules and ``seq_sp``, and so does the
+    attention of gemma2-2b, minitron-4b and musicgen-medium (the base
+    rules, the parameters' gradient; their heads whole on ``model``).
+    Before these placements were stated the SSD's ``in_proj`` gradient
+    under ``zero_r`` read 4x (all its columns on every rank), the router
+    under ``zero_r`` 0.62x and 0.50x, and the head had no function of its
+    own. Each rank's peak (its allocations and its inputs' shards, each
+    storage counted once) is at most 1.15x the reference's
+    ``memory_analysis()`` (the SSD's 0.90x), mamba2's head at full width
+    too, and so is dbrx's MoE (8 experts, top 2, d_ff_expert 64) under
+    both dispatches (``_expert_ffn``, the sort's dispatch and combine by
+    buffer row), and so are qwen3's attention and MLP, gemma2's
+    attention, and the attention of the three archs at full width: the
+    RG-LRU scans each rank's rows and channels, the router routes each
+    rank's rows, the loss holds no f32 copy of the logits, the MoE gathers
+    each expert weight inside its product and keeps no scaled or gathered
+    copy of the dispatched rows, and the attention lays K and V out once
+    for every query chunk and keeps no permuted copy of the probabilities
+    (before: up to 1.83x, 2.06x and 1.76x; the MoE 1.58x
+    under the einsum dispatch, 1.30x under the sort dispatch; gemma2's
+    attention 1.22x).
 (b) One layer (2 layers' tally minus 1's) of mamba2-1.3b's and
     recurrentgemma-9b's ``train_4k`` dry run on (data 16, model 16): no
     product over a whole dim that the reference splits (mamba2's in_proj
@@ -106,39 +119,24 @@ N = _script("torch_narrow_sharding")
 _port = functools.lru_cache(maxsize=None)(N.port)
 
 _REFERENCE_DOTS = r"""
-import json, os, re, sys
+import json, os, sys
 narrow, cases, (data, model), batch, seq, full = json.loads(sys.argv[1])
-devices = max([data * model] + [f[4] * f[5] for f in full])
+devices = max([data * model] + [f[5] * f[6] for f in full])
 os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
 import dataclasses
-import jax, jax.numpy as jnp, numpy as np
+import jax, jax.numpy as jnp
 from jax.sharding import AxisType
 from repro.configs import get_config
 from repro.launch.dryrun import VARIANTS, arch_rules
 from repro.models import layers as RL
 from repro.sharding import rules as RR
 from repro.sharding.rules import constrain
+from hlo_dots import dots
 
 mesh = jax.make_mesh((data, model), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2,
                      devices=jax.devices()[:data * model])
 RESID = ("batch", "resid_seq", "resid_embed")
-
-
-def dots(hlo):
-    shapes = {m.group(1): [int(v) for v in m.group(2).split(",") if v]
-              for m in re.finditer(r"%([\w.\-]+) = \w+\[([0-9,]*)\]", hlo)}
-    total = two_d = 0
-    for m in re.finditer(r"= \w+\[([0-9,]*)\]\S* dot\(%([\w.\-]+), "
-                         r"%[\w.\-]+\).*?lhs_contracting_dims=\{([0-9,]*)\}",
-                         hlo):
-        out = [int(v) for v in m.group(1).split(",") if v]
-        lhs = shapes[m.group(2)]
-        k = int(np.prod([lhs[int(i)] for i in m.group(3).split(",") if i]))
-        flops = 2 * int(np.prod(out)) * k
-        total += flops
-        two_d += flops if len(lhs) == 2 else 0
-    return total, two_d
 
 
 def case(layer, batch=batch, seq=seq):
@@ -227,21 +225,26 @@ def compile_case(layer, rules_name, wrt, mesh, batch, seq):
 
 
 res = {"/".join(c): compile_case(*c, mesh, batch, seq) for c in cases}
-for rules_name, arch, b, s, dd, mm in full:
+for rules_name, layer, wrt, b, s, dd, mm in full:
     big = jax.make_mesh((dd, mm), ("data", "model"),
                         axis_types=(AxisType.Auto,) * 2,
                         devices=jax.devices()[:dd * mm])
-    res[f"full/{arch}/{rules_name}"] = compile_case(arch, rules_name,
-                                                    "params_x", big, b, s)
+    res[f"full/{layer}/{rules_name}"] = compile_case(layer, rules_name, wrt,
+                                                     big, b, s)
 print(json.dumps(res))
 """
 
 
-# mamba2-1.3b's head at full width (a vocab that ``model`` does not divide)
-# under each rule set, train_4k's batch on (data 16, model 16): the
-# reference compiles on 256 XLA CPU devices; the port's products are read
-# off its dry run (``N.head_full_port``).
-FULL = [[rules, "mamba2-1.3b", 256, 4096, 16, 16] for rules in N.RULES]
+# Cases at full width, train_4k's batch on (data 16, model 16), ``[rules,
+# layer, wrt, batch, seq, data, model]``, which the reference compiles on
+# 256 XLA CPU devices: mamba2-1.3b's head (a vocab that ``model`` does not
+# divide) under each rule set, its products read off the port's dry run
+# (``N.head_full_port``); the attention of ``N.FULL_ATTENTION`` under the
+# base rules, for the parameters.
+FULL = ([[rules, "mamba2-1.3b", "params_x", 256, 4096, 16, 16]
+         for rules in N.RULES]
+        + [["base", layer, "params", 256, 4096, 16, 16]
+           for layer in N.FULL_ATTENTION])
 
 
 def _reference_process(timeout: float = DEADLINE_S, cases=None, full=FULL):
@@ -249,9 +252,10 @@ def _reference_process(timeout: float = DEADLINE_S, cases=None, full=FULL):
     of ``scripts/torch_narrow_sharding.py``'s ``PEAK_LAYERS``, the MoE's
     too) and of ``full``, compiled in a
     subprocess, started: returns a function that waits for it and returns
-    its JSON line, ``{"layer/rules/wrt": {...}, "full/arch/rules":
+    its JSON line, ``{"layer/rules/wrt": {...}, "full/layer/rules":
     {...}}`` (raising on failure), the process as its ``proc``."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
     proc = subprocess.Popen(
         [sys.executable, "-c", _REFERENCE_DOTS,
          json.dumps([N.NARROW, N.peak_cases() if cases is None else cases,
@@ -317,11 +321,16 @@ def _reference_dots(_jobs):
 
 @pytest.mark.parametrize("wrt", N.WRT)
 @pytest.mark.parametrize("rules", N.RULES)
-@pytest.mark.parametrize("layer", N.LAYERS)
+@pytest.mark.parametrize("layer", N.LAYERS + ("attention_gemma2",))
 def test_port_dots_equal_reference_dots(_reference_dots, layer, rules, wrt):
     """(a) Each rank multiplies what the reference's partitioned HLO
-    multiplies on a device, within 1%; the router's input gradient on
-    the port's d_model split (the reference's whole, less (M - 1) / M)."""
+    multiplies on a device (each dot of its scan once a trip), within 1%;
+    the router's input gradient on the port's d_model split (the
+    reference's whole, less (M - 1) / M). gemma2's attention, its heads
+    whole on ``model``: the reference computes the q/k/v input gradient
+    whole on every ``model`` rank, and under ``zero_r``, its block input
+    whole on d_model, the q/k/v projection and its weight gradient too;
+    the port computes each on its split, (M - 1) / M less."""
     torch.set_num_threads(1)
     want = _reference_dots[f"{layer}/{rules}/{wrt}"]
     got = _port(layer, rules, wrt)
@@ -338,6 +347,12 @@ def test_port_dots_equal_reference_dots(_reference_dots, layer, rules, wrt):
     if layer == "head514" and rules == "seq_sp":
         whole = 2 * tokens * cfg.vocab * cfg.d_model
         assert got == want - whole + whole // N.MESH[1], (got, want)
+        return
+    if layer == "attention_gemma2":
+        whole = (2 * tokens * (cfg.n_heads + 2 * cfg.n_kv) * cfg.head_dim
+                 * cfg.d_model)
+        n = (wrt == "params_x") + 2 * (rules == "zero_r")
+        assert got == want - n * (whole - whole // N.MESH[1]), (got, want)
         return
     assert abs(got / want - 1) <= 0.01, (got, want)
 
@@ -360,7 +375,9 @@ def test_port_peak_within_reference(_reference_dots, layer, rules, wrt):
     dbrx's MoE under both dispatches gathers each expert weight inside its
     product and holds no copy of the dispatched rows that the reference's
     gradient does not (before: up to 1.58x under the einsum dispatch,
-    1.30x under the sort dispatch)."""
+    1.30x under the sort dispatch); gemma2's attention in 8 chunks holds
+    one copy of K and V and none of the probabilities (before: up to
+    1.22x), and qwen3's attention and MLP are held too."""
     torch.set_num_threads(1)
     want = _reference_dots[f"{layer}/{rules}/{wrt}"]["peak_bytes"]
     got = _port(layer, rules, wrt)["peak_bytes"]
@@ -369,7 +386,7 @@ def test_port_peak_within_reference(_reference_dots, layer, rules, wrt):
 
 
 @pytest.mark.parametrize("key", ["/".join(c) for c in N.peak_cases()]
-                         + [f"full/mamba2-1.3b/{r}" for r in N.RULES])
+                         + [f"full/{f[1]}/{f[0]}" for f in FULL])
 def test_chip_smoke_reference_peaks_are_the_references(_reference_dots, key):
     """(a) ``chip_smoke.py`` holds the port's peaks on the card, where
     there is no JAX, to ``NARROW_REFERENCE_PEAKS``: each is the peak that
@@ -391,7 +408,7 @@ def test_full_width_head_peak_within_reference(_reference_dots, rules):
     torch.set_num_threads(1)
     want = _reference_dots[f"full/mamba2-1.3b/{rules}"]["peak_bytes"]
     got = _port(N.FULL_HEAD, rules, "params_x",
-                **N.FULL_HEAD_SHAPE)["peak_bytes"]
+                **N.FULL_SHAPE)["peak_bytes"]
     assert got <= PEAK_RATIO * want, (got, want, got / want)
 
 
@@ -404,6 +421,55 @@ def test_full_width_head_equals_reference(_reference_dots, rules):
     want = _reference_dots[f"full/mamba2-1.3b/{rules}"]["dots"]
     got = N.head_full_port(rules)
     assert abs(got / want - 1) <= 0.01, (got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_attention(layer: str) -> dict:
+    """The port's record of ``layer`` (of ``N.FULL_ATTENTION``) at full
+    width, with every group of storages live at its peak."""
+    torch.set_num_threads(1)
+    return N.port_live(layer, "base", "params", top=None, **N.FULL_SHAPE)
+
+
+@pytest.mark.parametrize("layer", N.FULL_ATTENTION)
+def test_full_width_attention_peak_within_reference(_reference_dots, layer):
+    """(a) The attention of gemma2-2b, minitron-4b and musicgen-medium at
+    full width (train_4k's batch on (16, 16), f32, the base rules, the
+    parameters' gradient; the heads of all three whole on ``model``): the
+    port's peak within PEAK_RATIO of the reference's compiled on 256
+    devices (34.49, 63.69 and 40.66 GB before K and V were laid out once
+    for every chunk)."""
+    want = _reference_dots[f"full/{layer}/base"]["peak_bytes"]
+    got = _full_attention(layer)["peak_bytes"]
+    assert got <= PEAK_RATIO * want, (got, want, got / want)
+
+
+@pytest.mark.parametrize("layer", N.FULL_ATTENTION)
+def test_full_width_attention_dots_equal_reference(_reference_dots, layer):
+    """(a) The same attention at full width: the port's matmul FLOPs equal
+    the reference's dots compiled on 256 devices, each dot of its scan
+    counted once a trip, within 1%."""
+    want = _reference_dots[f"full/{layer}/base"]["dots"]
+    got = _full_attention(layer)["flops"]
+    assert abs(got / want - 1) <= 0.01, (got, want)
+
+
+@pytest.mark.parametrize("layer", N.FULL_ATTENTION)
+def test_full_width_attention_holds_one_copy_of_k_and_v(layer):
+    """(a) The same attention at full width: the copies of K's size live
+    at the peak are one f32 K and one V (before: one of each a query
+    chunk, 8 of each), and no copy of a chunk's probabilities is (before:
+    one a chunk, permuted for the product with V)."""
+    cfg = N.narrow_cfg(layer)
+    rows = N.FULL_SHAPE["batch"] // N.FULL_SHAPE["mesh_shape"][0]
+    seq = N.FULL_SHAPE["seq"]
+    kv = rows * seq * cfg.n_kv * cfg.head_dim
+    probs = rows * cfg.n_heads * min(cfg.attn_chunk, seq) * seq
+    clones = [(shape, size) for (_, op, shape, _), size
+              in _full_attention(layer)["live"] if op == "clone.default"]
+    assert sum(size for shape, size in clones
+               if math.prod(shape) == kv) <= 2 * 4 * kv, clones
+    assert not [c for c in clones if math.prod(c[0]) == probs], clones
 
 
 @pytest.mark.parametrize("layer", ["ssm", "head514"])
@@ -906,25 +972,24 @@ def test_one_rank_mesh_steps_equal_plain_steps(_one_rank_runs, arch):
 
 
 def main(argv=None) -> int:
-    """The narrow cases and the full-width head side by side, one JSON line
-    each: the port's FLOPs and peak bytes (``scripts/torch_narrow_sharding
-    .py``) beside the reference's dots and ``memory_analysis()`` peak; with
-    ``--other`` the layers of ``N.OTHER_LAYERS`` instead."""
+    """The narrow cases and the full-width head and attention side by
+    side, one JSON line each: the port's FLOPs and peak bytes
+    (``scripts/torch_narrow_sharding.py``) beside the reference's dots and
+    ``memory_analysis()`` peak."""
     import argparse
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the lines here")
-    ap.add_argument("--other", action="store_true",
-                    help="the attention, MLP and MoE layers instead")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
-    cases = N.other_cases() if args.other else N.peak_cases()
-    full = [] if args.other else FULL
-    wait = _reference_process(cases=cases, full=full)
-    ported = {"/".join(c): N.port(*c) for c in cases}
-    for rules, arch, *_ in full:
-        ported[f"full/{arch}/{rules}"] = dict(
-            N.port(N.FULL_HEAD, rules, "params_x", **N.FULL_HEAD_SHAPE),
-            flops=N.head_full_port(rules), mm=None)
+    wait = _reference_process()
+    ported = {"/".join(c): N.port(*c) for c in N.peak_cases()}
+    for rules, layer, wrt, *_ in FULL:
+        if layer == "mamba2-1.3b":
+            got = dict(N.port(N.FULL_HEAD, rules, wrt, **N.FULL_SHAPE),
+                       flops=N.head_full_port(rules), mm=None)
+        else:
+            got = N.port(layer, rules, wrt, **N.FULL_SHAPE)
+        ported[f"full/{layer}/{rules}"] = got
     ref = json.loads(wait())
     lines = []
     for key, got in ported.items():
