@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
@@ -45,7 +44,10 @@ from repro_torch.core.types import (BuildParams, ColumnInfo, Hist1D, PairHist,
                                     PairwiseHist)
 from repro_torch.device import resolve_device
 from repro_torch.gd.greedygd import CompressedTable, GreedyGD, decompress_rows
-from repro_torch.obs.timeline import BuildTimeline
+from repro_torch.obs.timeline import BuildTimeline, to_device, to_host
+
+# The timeline of a scheduler called without one: records nothing.
+_NO_TIMELINE = BuildTimeline(enabled=False)
 
 
 def _prep_columns(sample: np.ndarray):
@@ -141,15 +143,14 @@ def build_pairs_sequential(sample: np.ndarray, hists: list, params, crit2,
     benchmarks' baseline. Returns {(a, b): PairHist} without fold maps.
     """
     K2 = params.k2_cap
-    cols = torch.as_tensor(np.ascontiguousarray(
-        np.nan_to_num(sample, nan=0.0).T), dtype=torch.float64, device=device)
+    cols = to_device(np.ascontiguousarray(np.nan_to_num(sample, nan=0.0).T),
+                     device, torch.float64)
     nanmask = np.isnan(sample)
     raw_pairs = {}
     for a, b in _pair_keys(sample.shape[1]):
-        valid = torch.as_tensor(~(nanmask[:, a] | nanmask[:, b]),
-                                device=device)
-        ex0 = torch.as_tensor(_pad_edges(hists[a].edges, K2), device=device)
-        ey0 = torch.as_tensor(_pad_edges(hists[b].edges, K2), device=device)
+        valid = to_device(~(nanmask[:, a] | nanmask[:, b]), device)
+        ex0 = to_device(_pad_edges(hists[a].edges, K2), device)
+        ey0 = to_device(_pad_edges(hists[b].edges, K2), device)
         ex, ey, kx, ky = refine.refine_2d(
             cols[a], cols[b], valid, ex0, ey0, min(int(hists[a].k), K2),
             min(int(hists[b].k), K2), float(m_pts), crit2, k2=K2,
@@ -157,8 +158,8 @@ def build_pairs_sequential(sample: np.ndarray, hists: list, params, crit2,
         out = refine.pair_metadata(cols[a], cols[b], valid, ex, ey, kx, ky,
                                    k2=K2)
         raw_pairs[(a, b)] = _trim_pair(
-            ex.cpu().numpy(), ey.cpu().numpy(), kx, ky,
-            *(v.cpu().numpy() for v in out))
+            to_host(ex).numpy(), to_host(ey).numpy(), kx, ky,
+            *(to_host(v).numpy() for v in out))
     return raw_pairs
 
 
@@ -248,8 +249,8 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     device->host transfer per chunk. Returns {(a, b): PairHist} without
     fold maps; records each launch's (size, capacity) into
     ``stats["pair_launches"]`` and, when a ``timeline`` is passed, one
-    ``batched_launch`` interval per launch (its metadata included) and a
-    ``pair_presort`` and a ``pair_upload`` interval per chunk.
+    ``batched_launch`` span per launch (its metadata included) and a
+    ``pair_presort`` and a ``pair_upload`` span per chunk.
 
     Each chunk refines at the smallest capacity rung that fits its initial
     grids; if any pair's capacity guard binds, the whole chunk re-runs one
@@ -257,6 +258,7 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     The host reads one flag a round (``refine.refine_2d_batch``) and the
     capped flags once a launch.
     """
+    tl = timeline or _NO_TIMELINE
     K2 = params.k2_cap
     n_s, d = sample.shape
     keys = _pair_keys(d)
@@ -268,43 +270,44 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     launches = []
     raw_pairs = {}
     for start in range(0, len(keys), chunk):
-        t_presort = time.perf_counter()
         part = keys[start:start + chunk]
-        size = _pow2_ceil(len(part))
-        x = np.zeros((size, n_s), np.float64)
-        y = np.zeros((size, n_s), np.float64)
-        valid = np.zeros((size, n_s), bool)
-        kx0 = np.ones(size, np.int64)
-        ky0 = np.ones(size, np.int64)
-        for p, (a, b) in enumerate(part):
-            x[p] = sample_nn[:, a]
-            y[p] = sample_nn[:, b]
-            valid[p] = ~(nanmask[:, a] | nanmask[:, b])
-            kx0[p] = min(int(hists[a].k), K2)
-            ky0[p] = min(int(hists[b].k), K2)
-        pres = _upload_presort(_presort_pairs_host(x, y, valid), device,
-                               timeline, t_presort, len(part))
+        with tl.phase("pair_presort", pairs=len(part)):
+            size = _pow2_ceil(len(part))
+            with tl.phase("presort_gather"):
+                x = np.zeros((size, n_s), np.float64)
+                y = np.zeros((size, n_s), np.float64)
+                valid = np.zeros((size, n_s), bool)
+                kx0 = np.ones(size, np.int64)
+                ky0 = np.ones(size, np.int64)
+                for p, (a, b) in enumerate(part):
+                    x[p] = sample_nn[:, a]
+                    y[p] = sample_nn[:, b]
+                    valid[p] = ~(nanmask[:, a] | nanmask[:, b])
+                    kx0[p] = min(int(hists[a].k), K2)
+                    ky0[p] = min(int(hists[b].k), K2)
+            with tl.phase("presort_sort"):
+                host = _presort_pairs_host(x, y, valid)
+        with tl.phase("pair_upload", pairs=len(part)):
+            pres = tuple(to_device(arr, device) for arr in host)
         need = int(max(kx0.max(), ky0.max()))
         for cap in _cap_ladder(need, K2, params.k2_start):
-            t_launch = time.perf_counter()
-            ex0 = np.full((size, cap + 1), np.inf, np.float64)
-            ey0 = np.full((size, cap + 1), np.inf, np.float64)
-            ex0[:, :2] = 0.0
-            ey0[:, :2] = 0.0  # dummy lanes: one empty bin, no valid rows
-            for p, (a, b) in enumerate(part):
-                ex0[p] = _pad_edges(hists[a].edges, cap)
-                ey0[p] = _pad_edges(hists[b].edges, cap)
-            out = refine.build_pairs_device(
-                *pres, torch.as_tensor(ex0, device=device),
-                torch.as_tensor(ey0, device=device),
-                torch.as_tensor(kx0, device=device),
-                torch.as_tensor(ky0, device=device), float(m_pts), crit2,
-                k2=cap, s_max=params.s2_max, max_rounds=params.max_rounds_2d)
-            host = [v.cpu().numpy() for v in out]   # the chunk's transfer
-            launches.append((size, cap))
-            if timeline is not None:
-                timeline.add("batched_launch", t_launch, time.perf_counter(),
-                             cap=cap, size=size, pairs=len(part))
+            with tl.phase("batched_launch", cap=cap, size=size,
+                          pairs=len(part)):
+                ex0 = np.full((size, cap + 1), np.inf, np.float64)
+                ey0 = np.full((size, cap + 1), np.inf, np.float64)
+                ex0[:, :2] = 0.0
+                ey0[:, :2] = 0.0  # dummy lanes: one empty bin, no valid rows
+                for p, (a, b) in enumerate(part):
+                    ex0[p] = _pad_edges(hists[a].edges, cap)
+                    ey0[p] = _pad_edges(hists[b].edges, cap)
+                out = refine.build_pairs_device(
+                    *pres, to_device(ex0, device), to_device(ey0, device),
+                    to_device(kx0, device), to_device(ky0, device),
+                    float(m_pts), crit2, k2=cap, s_max=params.s2_max,
+                    max_rounds=params.max_rounds_2d)
+                # the chunk's transfer
+                host = [to_host(v).numpy() for v in out]
+                launches.append((size, cap))
             capped = host[4]
             if cap >= K2 or not capped[: len(part)].any():
                 break
@@ -321,23 +324,9 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
 _COMPACT_QUEUE = 4
 
 
-def _upload_presort(host: tuple, device, timeline, t_presort: float,
-                    pairs: int) -> tuple:
-    """Upload a group's host presort; a ``timeline`` gets a
-    ``pair_presort`` interval (gather and sort, from ``t_presort``) and a
-    ``pair_upload`` interval (the copies, which wait for the device)."""
-    t_upload = time.perf_counter()
-    pres = tuple(torch.as_tensor(arr, device=device) for arr in host)
-    if timeline is not None:
-        timeline.add("pair_presort", t_presort, t_upload, pairs=pairs)
-        timeline.add("pair_upload", t_upload, time.perf_counter(),
-                     pairs=pairs)
-    return pres
-
-
 def _stack_edges(rows, cap: int, device) -> torch.Tensor:
-    return torch.as_tensor(np.stack([_pad_edges(e, cap) for e in rows]),
-                           dtype=torch.float64, device=device)
+    return to_device(np.stack([_pad_edges(e, cap) for e in rows]), device,
+                     torch.float64)
 
 
 def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
@@ -354,21 +343,22 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     launch shapes and the round ledger (rounds, pair-rounds, the
     slot-rounds its launches' slot counts could have run, and rounds by
     active-slot count in ``occupancy_hist``); a ``timeline`` gets one
-    ``compact_launch`` interval per rung and a ``rung_escalation`` marker
-    when pairs move up, one ``pair_presort`` interval for the column ranks
-    and, per group, a ``pair_presort``, a ``pair_upload`` and a
-    ``pair_metadata`` interval (the metadata launches, their transfers and
-    the trim).
+    ``compact_launch`` span per rung and a ``rung_escalation`` marker when
+    pairs move up, one ``pair_presort`` span for the column ranks
+    (``presort_ranks``) and, per group, a ``pair_presort`` (its
+    ``presort_gather`` and ``presort_sort``), a ``pair_upload`` and a
+    ``pair_metadata`` span (the metadata launches, their transfers and the
+    trim).
     """
+    tl = timeline or _NO_TIMELINE
     K2 = params.k2_cap
     n_s, d = sample.shape
     keys = _pair_keys(d)
-    t_ranks = time.perf_counter()
-    sample_nn = np.nan_to_num(sample, nan=0.0)
-    nanmask = np.isnan(sample)
-    ranks = _column_ranks(sample_nn)
-    if timeline is not None:
-        timeline.add("pair_presort", t_ranks, time.perf_counter(), pairs=0)
+    with tl.phase("pair_presort", pairs=0):
+        sample_nn = np.nan_to_num(sample, nan=0.0)
+        nanmask = np.isnan(sample)
+        with tl.phase("presort_ranks"):
+            ranks = _column_ranks(sample_nn)
     slots = _pow2_floor(int(params.pair_chunk))
     group_cap = slots * _COMPACT_QUEUE
     launches = []
@@ -377,25 +367,28 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     raw_pairs = {}
 
     for start in range(0, len(keys), group_cap):
-        t_presort = time.perf_counter()
         part = keys[start:start + group_cap]
         g = len(part)
-        x = np.empty((g, n_s), np.float64)
-        y = np.empty((g, n_s), np.float64)
-        valid = np.empty((g, n_s), bool)
-        rx = np.empty((g, n_s), np.int64)
-        ry = np.empty((g, n_s), np.int64)
-        kx0g = np.ones(g, np.int64)
-        ky0g = np.ones(g, np.int64)
-        for p, (a, b) in enumerate(part):
-            x[p] = sample_nn[:, a]
-            y[p] = sample_nn[:, b]
-            valid[p] = ~(nanmask[:, a] | nanmask[:, b])
-            rx[p], ry[p] = ranks[a], ranks[b]
-            kx0g[p] = min(int(hists[a].k), K2)
-            ky0g[p] = min(int(hists[b].k), K2)
-        pres = _upload_presort(_presort_pairs_host(x, y, valid, rx, ry),
-                               device, timeline, t_presort, g)
+        with tl.phase("pair_presort", pairs=g):
+            with tl.phase("presort_gather"):
+                x = np.empty((g, n_s), np.float64)
+                y = np.empty((g, n_s), np.float64)
+                valid = np.empty((g, n_s), bool)
+                rx = np.empty((g, n_s), np.int64)
+                ry = np.empty((g, n_s), np.int64)
+                kx0g = np.ones(g, np.int64)
+                ky0g = np.ones(g, np.int64)
+                for p, (a, b) in enumerate(part):
+                    x[p] = sample_nn[:, a]
+                    y[p] = sample_nn[:, b]
+                    valid[p] = ~(nanmask[:, a] | nanmask[:, b])
+                    rx[p], ry[p] = ranks[a], ranks[b]
+                    kx0g[p] = min(int(hists[a].k), K2)
+                    ky0g[p] = min(int(hists[b].k), K2)
+            with tl.phase("presort_sort"):
+                host = _presort_pairs_host(x, y, valid, rx, ry)
+        with tl.phase("pair_upload", pairs=g):
+            pres = tuple(to_device(arr, device) for arr in host)
 
         ladder = _cap_ladder(2, K2, params.k2_start)
         queue: dict[int, list] = {}
@@ -410,72 +403,66 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
                 continue
             drain_capped = cap < K2
             n_slots = min(slots, len(pend))
-            t_launch = time.perf_counter()
-            idx = torch.as_tensor(pend, dtype=torch.int64, device=device)
-            ledger = {"loop_rounds": 0, "pair_rounds": 0,
-                      "occupancy_hist": comp["occupancy_hist"]}
-            oex, oey, okx, oky, ocap, _ornd = refine.refine_2d_compact(
-                tuple(arr[idx] for arr in pres),
-                _stack_edges([hists[part[gid][0]].edges for gid in pend],
-                             cap, device),
-                _stack_edges([hists[part[gid][1]].edges for gid in pend],
-                             cap, device),
-                torch.as_tensor(kx0g[pend], device=device),
-                torch.as_tensor(ky0g[pend], device=device),
-                float(m_pts), crit2, n_slots=n_slots, k2=cap,
-                s_max=params.s2_max, max_rounds=params.max_rounds_2d,
-                drain_capped=drain_capped, stats=ledger)
-            oex_h = oex.cpu().numpy()
-            oey_h = oey.cpu().numpy()
-            launches.append((n_slots, cap))
-            comp["loop_rounds"] += ledger["loop_rounds"]
-            comp["pair_rounds"] += ledger["pair_rounds"]
-            comp["slot_rounds"] += ledger["loop_rounds"] * n_slots
-            escalated = 0
-            for p, gid in enumerate(pend):
-                if drain_capped and ocap[p]:
-                    queue.setdefault(ladder[rung_i + 1], []).append(gid)
-                    escalated += 1
-                else:
-                    final[gid] = (cap, oex_h[p], oey_h[p], okx[p], oky[p])
-            comp["escalated_pairs"] += escalated
-            if timeline is not None:
-                timeline.add("compact_launch", t_launch, time.perf_counter(),
-                             cap=cap, slots=n_slots,
-                             pairs=len(pend), escalated=escalated,
-                             loop_rounds=ledger["loop_rounds"],
-                             pair_rounds=ledger["pair_rounds"])
-                if escalated:
-                    timeline.event("rung_escalation", from_cap=cap,
-                                   to_cap=ladder[rung_i + 1],
-                                   pairs=escalated)
+            with tl.phase("compact_launch", cap=cap, slots=n_slots,
+                          pairs=len(pend)) as span:
+                idx = to_device(pend, device, torch.int64)
+                ledger = {"loop_rounds": 0, "pair_rounds": 0,
+                          "occupancy_hist": comp["occupancy_hist"]}
+                oex, oey, okx, oky, ocap, _ornd = refine.refine_2d_compact(
+                    tuple(arr[idx] for arr in pres),
+                    _stack_edges([hists[part[gid][0]].edges for gid in pend],
+                                 cap, device),
+                    _stack_edges([hists[part[gid][1]].edges for gid in pend],
+                                 cap, device),
+                    to_device(kx0g[pend], device),
+                    to_device(ky0g[pend], device),
+                    float(m_pts), crit2, n_slots=n_slots, k2=cap,
+                    s_max=params.s2_max, max_rounds=params.max_rounds_2d,
+                    drain_capped=drain_capped, stats=ledger)
+                oex_h = to_host(oex).numpy()
+                oey_h = to_host(oey).numpy()
+                launches.append((n_slots, cap))
+                comp["loop_rounds"] += ledger["loop_rounds"]
+                comp["pair_rounds"] += ledger["pair_rounds"]
+                comp["slot_rounds"] += ledger["loop_rounds"] * n_slots
+                escalated = 0
+                for p, gid in enumerate(pend):
+                    if drain_capped and ocap[p]:
+                        queue.setdefault(ladder[rung_i + 1], []).append(gid)
+                        escalated += 1
+                    else:
+                        final[gid] = (cap, oex_h[p], oey_h[p], okx[p],
+                                      oky[p])
+                comp["escalated_pairs"] += escalated
+                span.update(escalated=escalated,
+                            loop_rounds=ledger["loop_rounds"],
+                            pair_rounds=ledger["pair_rounds"])
+            if escalated:
+                tl.event("rung_escalation", from_cap=cap,
+                         to_cap=ladder[rung_i + 1], pairs=escalated)
 
         # Metadata per rung (pairs that finished at the same capacity share
         # one launch; the trim is capacity-independent).
-        t_meta = time.perf_counter()
-        by_cap: dict[int, list] = {}
-        for gid, (cap, *_rest) in final.items():
-            by_cap.setdefault(cap, []).append(gid)
-        for cap, gids in sorted(by_cap.items()):
-            idx = torch.as_tensor(gids, dtype=torch.int64, device=device)
-            ex_m = np.stack([final[gid][1] for gid in gids])
-            ey_m = np.stack([final[gid][2] for gid in gids])
-            kx_m = np.array([final[gid][3] for gid in gids], np.int64)
-            ky_m = np.array([final[gid][4] for gid in gids], np.int64)
-            meta = refine.pair_metadata_batch(
-                *(arr[idx] for arr in pres),
-                torch.as_tensor(ex_m, device=device),
-                torch.as_tensor(ey_m, device=device),
-                torch.as_tensor(kx_m, device=device),
-                torch.as_tensor(ky_m, device=device), k2=cap)
-            meta_h = [v.cpu().numpy() for v in meta]
-            for p, gid in enumerate(gids):
-                raw_pairs[part[gid]] = _trim_pair(
-                    ex_m[p], ey_m[p], kx_m[p], ky_m[p],
-                    *(v[p] for v in meta_h))
-        if timeline is not None:
-            timeline.add("pair_metadata", t_meta, time.perf_counter(),
-                         pairs=g, launches=len(by_cap))
+        with tl.phase("pair_metadata", pairs=g) as span:
+            by_cap: dict[int, list] = {}
+            for gid, (cap, *_rest) in final.items():
+                by_cap.setdefault(cap, []).append(gid)
+            for cap, gids in sorted(by_cap.items()):
+                idx = to_device(gids, device, torch.int64)
+                ex_m = np.stack([final[gid][1] for gid in gids])
+                ey_m = np.stack([final[gid][2] for gid in gids])
+                kx_m = np.array([final[gid][3] for gid in gids], np.int64)
+                ky_m = np.array([final[gid][4] for gid in gids], np.int64)
+                meta = refine.pair_metadata_batch(
+                    *(arr[idx] for arr in pres),
+                    to_device(ex_m, device), to_device(ey_m, device),
+                    to_device(kx_m, device), to_device(ky_m, device), k2=cap)
+                meta_h = [to_host(v).numpy() for v in meta]
+                for p, gid in enumerate(gids):
+                    raw_pairs[part[gid]] = _trim_pair(
+                        ex_m[p], ey_m[p], kx_m[p], ky_m[p],
+                        *(v[p] for v in meta_h))
+            span["launches"] = len(by_cap)
     if stats is not None:
         stats["pair_launches"] = launches
         stats["compaction"] = comp
@@ -524,11 +511,13 @@ def build_pairwise_hist(
     params = params or BuildParams()
     dev = resolve_device(device)
     ct = data if isinstance(data, CompressedTable) else None
+    timeline = BuildTimeline()
     if ct is not None:
         n_input = ct.n_rows
         d = ct.d
         if seed_edges is None and params.seed_from_bases:
-            seed_edges = GreedyGD.seed_edges(ct)
+            with timeline.phase("seed_edges", d=d):
+                seed_edges = GreedyGD.seed_edges(ct)
     else:
         data = np.asarray(data, np.float64)
         n_input = int(data.shape[0])
@@ -536,13 +525,12 @@ def build_pairwise_hist(
     n_total = n_input if n_rows_full is None else int(n_rows_full)
     if len(columns) != d:
         raise ValueError("columns metadata must match data width")
-    timeline = BuildTimeline()
 
     def f64(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+        return to_device(a, dev, torch.float64)
 
     def i64(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+        return to_device(a, dev, torch.int64)
 
     # --- 1. sample ---------------------------------------------------------
     with timeline.phase("sample", n_rows=n_input, d=d):
@@ -553,14 +541,16 @@ def build_pairwise_hist(
         else:
             rows = None
         if ct is not None:
-            sample = decompress_rows(ct, rows)
+            with timeline.phase("decompress_rows", rows=n_s):
+                sample = decompress_rows(ct, rows)
         else:
             sample = data if rows is None else data[rows]
         m_pts = max(2, int(round(params.m_frac * n_s)))
         n_take = max(2, math.ceil(n_s / m_pts))
         s_max = max(params.s1_max, params.s2_max)
-        crit_np = chi2lib.build_crit_table(params.alpha, s_max)
-        crit = f64(crit_np)
+        with timeline.phase("crit_table", s_max=s_max):
+            crit_np = chi2lib.build_crit_table(params.alpha, s_max)
+            crit = f64(crit_np)
         crit1 = crit[: params.s1_max + 1]
         crit2 = crit[: params.s2_max + 1]
 
@@ -587,13 +577,13 @@ def build_pairwise_hist(
             s_max=params.s1_max, max_rounds=params.max_rounds_1d)
         meta = refine.metadata_1d(xs_t, up_t, edges_t, k_t, float(m_pts),
                                   crit1, mu_t, s_max=params.s1_max)
-        hists = _hists_from_host(edges_t.cpu().numpy(), k_t.cpu().numpy(),
-                                 *(v.cpu().numpy() for v in meta))
+        hists = _hists_from_host(to_host(edges_t).numpy(),
+                                 to_host(k_t).numpy(),
+                                 *(to_host(v).numpy() for v in meta))
 
     # --- 3. pair histograms (batched across pairs) -------------------------
-    t_pairs = time.perf_counter()
     build_stats: dict = {}
-    with timeline.phase("pair_phase"):
+    with timeline.phase("pair_phase") as pair_span:
         if params.pair_batched and params.compact_drain:
             mode = "compact"
             raw_pairs = build_pairs_compact(sample, hists, params, crit2,
@@ -611,7 +601,7 @@ def build_pairwise_hist(
     build_stats.update({
         "mode": mode,
         "n_pairs": len(raw_pairs),
-        "pair_phase_s": time.perf_counter() - t_pairs,
+        "pair_phase_s": pair_span["t1"] - pair_span["t0"],
         "pair_chunk": params.pair_chunk,
         "from_compressed": ct is not None,
         "device": str(dev),
@@ -622,27 +612,30 @@ def build_pairwise_hist(
     # --- 4. refine 1-D grids to the union of their pairs' edge sets --------
     # Aggregation runs on the 1-D grid (Table 3); the union grid preserves
     # the 2-D refinement. Fold maps: 1-D bin -> containing pair row.
-    t_regrid = time.perf_counter()
-    e_pad = np.full((d, K1 + 1), np.inf)
-    k_u = np.empty(d, np.int64)
-    for i in range(d):
-        union = [hists[i].edges]
-        for (a, b), pr in raw_pairs.items():
-            if a == i:
-                union.append(pr.ex)
-            elif b == i:
-                union.append(pr.ey)
-        edges_u = np.unique(np.concatenate(union))
-        edges_u = edges_u[np.isfinite(edges_u)]
-        if edges_u.size > K1 + 1:  # capacity: thin uniformly, keep extremes
-            idx = np.linspace(0, edges_u.size - 1, K1 + 1).round().astype(int)
-            edges_u = edges_u[np.unique(idx)]
-        e_pad[i, : edges_u.size] = edges_u
-        k_u[i] = edges_u.size - 1
-    meta = refine.metadata_1d(xs_t, up_t, f64(e_pad), i64(k_u), float(m_pts),
-                              crit1, mu_t, s_max=params.s1_max)
-    hists = _hists_from_host(e_pad, k_u, *(v.cpu().numpy() for v in meta))
-    timeline.add("union_regrid", t_regrid, time.perf_counter(), d=d)
+    with timeline.phase("union_regrid", d=d):
+        e_pad = np.full((d, K1 + 1), np.inf)
+        k_u = np.empty(d, np.int64)
+        for i in range(d):
+            union = [hists[i].edges]
+            for (a, b), pr in raw_pairs.items():
+                if a == i:
+                    union.append(pr.ex)
+                elif b == i:
+                    union.append(pr.ey)
+            edges_u = np.unique(np.concatenate(union))
+            edges_u = edges_u[np.isfinite(edges_u)]
+            # Capacity: thin uniformly, keep the extremes.
+            if edges_u.size > K1 + 1:
+                idx = np.linspace(0, edges_u.size - 1,
+                                  K1 + 1).round().astype(int)
+                edges_u = edges_u[np.unique(idx)]
+            e_pad[i, : edges_u.size] = edges_u
+            k_u[i] = edges_u.size - 1
+        meta = refine.metadata_1d(xs_t, up_t, f64(e_pad), i64(k_u),
+                                  float(m_pts), crit1, mu_t,
+                                  s_max=params.s1_max)
+        hists = _hists_from_host(e_pad, k_u,
+                                 *(to_host(v).numpy() for v in meta))
 
     pairs: dict[tuple[int, int], PairHist] = {}
     with timeline.phase("folds", n_pairs=len(raw_pairs)):
@@ -653,6 +646,8 @@ def build_pairwise_hist(
 
     build_stats["timeline"] = timeline.events
     build_stats["phase_s"] = timeline.summary()
+    build_stats["counts"] = timeline.counts()
+    build_stats["count_totals"] = timeline.totals()
 
     return PairwiseHist(
         params=params,

@@ -40,14 +40,15 @@ import torch
 
 from repro_torch.core import chi2 as chi2lib
 from repro_torch.kernels.hist2d import batched_hist2d
+from repro_torch.obs.timeline import to_device, to_host
 
 _INF = float("inf")
 
 
 def _clip(x, lo, hi):
-    """``jnp.clip`` for tensors or scalars: min(max(x, lo), hi)."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    """``jnp.clip`` of a tensor to host numbers: min(max(x, lo), hi)."""
+    lo = to_device(lo, x.device, x.dtype)
+    hi = to_device(hi, x.device, x.dtype)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
@@ -208,7 +209,7 @@ def refine_1d(xs, uprefix, init_edges, n_init, min_points, crit_table,
         edges = torch.sort(torch.cat([edges, new], dim=1), dim=1).values
         edges = edges[:, : K + 1].contiguous()
         k = k + n_split
-        if not bool(n_split.any()):
+        if not bool(to_host(n_split.any())):
             break
     return edges, k
 
@@ -334,8 +335,8 @@ def refine_2d(x, y, valid, ex0, ey0, kx0: int, ky0: int, min_points,
     ncell = k2 * k2
     dev = x.device
     ex, ey = ex0[None], ey0[None]
-    kx = torch.tensor([kx0], dtype=torch.int64, device=dev)
-    ky = torch.tensor([ky0], dtype=torch.int64, device=dev)
+    kx = to_device([kx0], dev, torch.int64)
+    ky = to_device([ky0], dev, torch.int64)
     kx_h, ky_h = int(kx0), int(ky0)
     ones = valid.to(torch.float64)
     for _ in range(max_rounds):
@@ -359,7 +360,7 @@ def refine_2d(x, y, valid, ex0, ey0, kx0: int, ky0: int, min_points,
             h_cell[None], ux_cell[None], uy_cell[None], stat_x[None],
             crit_x[None], stat_y[None], crit_y[None], ex, ey, kx, ky,
             min_points, k2=k2)
-        n_split_h, kx_h, ky_h = torch.cat([n_split, kx, ky]).tolist()
+        n_split_h, kx_h, ky_h = to_host(torch.cat([n_split, kx, ky])).tolist()
         if n_split_h == 0:
             break
     return ex[0], ey[0], kx_h, ky_h
@@ -374,8 +375,8 @@ def pair_metadata(x, y, valid, ex, ey, kx: int, ky: int, *, k2: int):
     """
     ncell = k2 * k2
     dev = x.device
-    kx_t = torch.tensor([kx], dtype=torch.int64, device=dev)
-    ky_t = torch.tensor([ky], dtype=torch.int64, device=dev)
+    kx_t = to_device([kx], dev, torch.int64)
+    ky_t = to_device([ky], dev, torch.int64)
     bi = _bin_index(x, ex, kx_t)
     bj = _bin_index(y, ey, ky_t)
     cell = torch.where(valid, bi * k2 + bj, torch.full_like(bi, ncell))
@@ -581,7 +582,7 @@ def refine_2d_batch(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
             xo1, yo1, vo1, new1, xo2, yo2, vo2, new2, ex, ey, kx, ky,
             min_points, crit_table, k2=k2, s_max=s_max)
         capped = capped | capped_r
-        if not bool((n_split > 0).any()):
+        if not bool(to_host((n_split > 0).any())):
             break
     return ex, ey, kx, ky, capped
 
@@ -639,21 +640,22 @@ def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,
 
     slot_pair = list(range(min(n_slots, g)))
     next_ptr = len(slot_pair)
-    idx = torch.tensor(slot_pair, dtype=torch.int64, device=dev)
+    idx = to_device(slot_pair, dev, torch.int64)
     sex, sey = ex0[idx], ey0[idx]
     skx = kx0[idx].to(torch.int64)
     sky = ky0[idx].to(torch.int64)
     scap = torch.zeros(len(slot_pair), dtype=torch.bool, device=dev)
     srnd = [0] * len(slot_pair)
     while slot_pair:
-        idx = torch.tensor(slot_pair, dtype=torch.int64, device=dev)
+        idx = to_device(slot_pair, dev, torch.int64)
         data = [a[idx] for a in pres]
         sex, sey, skx, sky, n_split, cap_r = _round_2d_batch(
             *data, sex, sey, skx, sky, min_points, crit_table, k2=k2,
             s_max=s_max)
         scap = scap | cap_r
         # One grouped device->host transfer per round.
-        flags = torch.stack([n_split, scap.to(torch.int64), skx, sky]).cpu()
+        flags = to_host(torch.stack([n_split, scap.to(torch.int64), skx,
+                                     sky]))
         n_split_h, scap_h, skx_h, sky_h = flags.tolist()
         if stats is not None:
             stats["loop_rounds"] += 1
@@ -668,9 +670,9 @@ def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,
                 conv = True
             (done if conv else keep).append(si)
         if done:
-            d_idx = torch.tensor(done, dtype=torch.int64, device=dev)
-            p_idx = torch.tensor([slot_pair[si] for si in done],
-                                 dtype=torch.int64, device=dev)
+            d_idx = to_device(done, dev, torch.int64)
+            p_idx = to_device([slot_pair[si] for si in done], dev,
+                              torch.int64)
             out_ex[p_idx] = sex[d_idx]
             out_ey[p_idx] = sey[d_idx]
             for si in done:
@@ -682,8 +684,8 @@ def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,
         fresh = list(range(next_ptr, next_ptr + n_new))
         next_ptr += n_new
         if done and (keep or fresh):
-            k_idx = torch.tensor(keep, dtype=torch.int64, device=dev)
-            f_idx = torch.tensor(fresh, dtype=torch.int64, device=dev)
+            k_idx = to_device(keep, dev, torch.int64)
+            f_idx = to_device(fresh, dev, torch.int64)
             sex = torch.cat([sex[k_idx], ex0[f_idx]])
             sey = torch.cat([sey[k_idx], ey0[f_idx]])
             skx = torch.cat([skx[k_idx], kx0[f_idx].to(torch.int64)])

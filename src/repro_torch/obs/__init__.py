@@ -4,7 +4,8 @@ Perfetto export.
 The serving stack (``repro_torch.serve.aqp``) threads a per-query
 ``QueryTrace`` through submit -> admission -> wave -> resolution and records
 spans into a lock-free ring-buffer ``Tracer``; the construction stack
-records a ``BuildTimeline`` of phases and per-rung compaction events into
+records a ``BuildTimeline`` (a tree of spans with host/device transfer
+counters, and ``torch.profiler`` ranges while a profiler records) into
 ``PairwiseHist.build_stats``. Both sides export to Chrome/Perfetto
 ``trace_event`` JSON via ``repro_torch.obs.export`` (open the artifact at
 https://ui.perfetto.dev).

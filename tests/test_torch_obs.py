@@ -239,8 +239,9 @@ def test_build_timeline_and_phase_summary(framework):
 ])
 def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
     """The batched schedulers time their host presort, its upload, their
-    launches and (compacting) their metadata as intervals that lie inside
-    the pair phase, apart from one another."""
+    launches and (compacting) their metadata as child spans of the pair
+    phase, apart from one another; the launches count the host's reads of
+    the device and the upload its copies."""
     from repro_torch.core.build import build_pairwise_hist
     from repro_torch.core.types import ColumnInfo
     data = np.stack(list(_table().values()), 1)
@@ -250,16 +251,189 @@ def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
     stats = syn.build_stats
     assert stats["mode"] == scheduler
     events = stats["timeline"]
-    (pair,) = [ev for ev in events if ev["name"] == "pair_phase"]
+    (i_pair,) = [i for i, ev in enumerate(events)
+                 if ev["name"] == "pair_phase"]
+    pair = events[i_pair]
     inner = sorted((ev for ev in events if ev["name"] in spans),
                    key=lambda ev: ev["t0"])
     assert {ev["name"] for ev in inner} == set(spans)
     for ev in inner:
+        assert ev["parent"] == i_pair
         assert pair["t0"] <= ev["t0"] <= ev["t1"] <= pair["t1"]
     for a, b in zip(inner, inner[1:]):
         assert a["t1"] <= b["t0"]
     assert sum(stats["phase_s"][s] for s in spans) <= \
         stats["phase_s"]["pair_phase"]
+    assert stats["pair_phase_s"] == pair["t1"] - pair["t0"]
+    launch = f"{scheduler}_launch"
+    assert all(ev["counts"]["d2h_reads"] > 0 for ev in inner
+               if ev["name"] == launch)
+    counts = stats["counts"]
+    assert counts["pair_upload"]["h2d_copies"] == 8 * sum(
+        ev["name"] == "pair_upload" for ev in events)
+    assert "d2h_reads" not in counts["pair_upload"]
+
+
+# A compressed build that takes every span of the compacting scheduler:
+# 10 pairs in two groups of at most 8, pairs escalating from k2 = 8.
+SPAN_PARAMS = dict(n_samples=4_000, seed=1, pair_chunk=2, k2_start=8)
+
+
+def _span_table():
+    rng = np.random.default_rng(5)
+    n = 8_000
+    a = rng.integers(0, 400, n).astype(float)
+    d = np.abs(rng.normal(100, 30, n)).round()
+    d[rng.random(n) < 0.1] = np.nan
+    return {"a": a, "b": (a * 0.5 + rng.normal(0, 10, n)).round().clip(0),
+            "c": rng.integers(0, 40, n).astype(float), "d": d,
+            "e": rng.integers(0, 4, n).astype(float)}
+
+
+@pytest.fixture(scope="module")
+def span_framework():
+    fw = AQPFramework(params=BuildParams(**SPAN_PARAMS),
+                      use_compression=True, device="cpu")
+    return fw.ingest(_span_table())
+
+
+@pytest.fixture(scope="module")
+def span_build(span_framework):
+    return span_framework.synopsis.build_stats
+
+
+def _check_nesting(stats):
+    events = stats["timeline"]
+    assert events[0]["parent"] is None
+    for i, ev in enumerate(events):
+        assert ev["t0"] <= ev["t1"]
+        if ev["parent"] is None:
+            continue
+        assert ev["parent"] < i
+        up = events[ev["parent"]]
+        assert up["kind"] == "phase"
+        assert up["t0"] <= ev["t0"] <= ev["t1"] <= up["t1"]
+    roots = [ev for ev in events if ev["parent"] is None]
+    for a, b in zip(roots, roots[1:]):
+        assert a["t1"] <= b["t0"]
+
+
+def _check_names(stats):
+    from collections import Counter
+    from repro_torch.core.build import _COMPACT_QUEUE
+    events = stats["timeline"]
+    n = Counter(ev["name"] for ev in events if ev["kind"] == "phase")
+    groups = -(-stats["n_pairs"] // (SPAN_PARAMS["pair_chunk"]
+                                     * _COMPACT_QUEUE))
+    assert groups == 2 and stats["compaction"]["escalated_pairs"] > 0
+    launches = len(stats["pair_launches"])
+    assert n == {
+        # the spans the build had before
+        "sample": 1, "refine_1d": 1, "pair_phase": 1, "union_regrid": 1,
+        "folds": 1, "pair_presort": 1 + groups, "pair_upload": groups,
+        "compact_launch": launches, "pair_metadata": groups,
+        # and the new ones
+        "seed_edges": 1, "decompress_rows": 1, "crit_table": 1,
+        "presort_ranks": 1, "presort_gather": groups,
+        "presort_sort": groups}
+    by_name = {}
+    for ev in events:
+        by_name.setdefault(ev["name"], []).append(ev)
+    assert [ev["pairs"] for ev in by_name["pair_presort"]] == [0, 8, 2]
+    for name, parent in (("decompress_rows", "sample"),
+                         ("crit_table", "sample"),
+                         ("presort_ranks", "pair_presort"),
+                         ("presort_gather", "pair_presort"),
+                         ("presort_sort", "pair_presort")):
+        assert all(events[ev["parent"]]["name"] == parent
+                   for ev in by_name[name])
+    (rank_span,) = by_name["presort_ranks"]
+    assert events[rank_span["parent"]]["pairs"] == 0
+    assert sum(ev["name"] == "rung_escalation" for ev in events) > 0
+
+
+def _check_d2h(stats):
+    """One read a compacting round, the edges of each launch, the nine
+    fields of each metadata launch."""
+    meta = sum(ev["launches"] for ev in stats["timeline"]
+               if ev["name"] == "pair_metadata")
+    want = (stats["compaction"]["loop_rounds"]
+            + 2 * len(stats["pair_launches"]) + 9 * meta)
+    assert stats["counts"]["pair_phase"]["d2h_reads"] == want
+
+
+def _check_h2d(stats):
+    """The upload's bytes are the presort's: x, y (f64) and validity and
+    run flags (bool) in two orders, for every pair and sampled row."""
+    n_s = stats["rows_decoded"]
+    upload = stats["counts"]["pair_upload"]
+    assert upload["h2d_bytes"] == stats["n_pairs"] * n_s * 2 * (8 + 8 + 1 + 1)
+    assert upload["h2d_copies"] == 8 * 2
+    totals = stats["count_totals"]
+    assert totals["h2d_bytes"] >= upload["h2d_bytes"]
+    assert totals == {
+        k: sum(c.get(k, 0) for name, c in stats["counts"].items()
+               if name in ("seed_edges", "sample", "refine_1d",
+                           "pair_phase", "union_regrid", "folds"))
+        for k in totals}
+
+
+@pytest.mark.parametrize("check", [_check_nesting, _check_names, _check_d2h,
+                                   _check_h2d])
+def test_build_span_tree(span_build, check):
+    """A small compressed build's span tree: every span inside its parent;
+    the earlier spans as often as before beside the new ones; the pair
+    phase's reads of the device as the compacting loop implies; the
+    presort upload's bytes."""
+    check(span_build)
+
+
+@pytest.mark.parametrize("profiled", [True, False])
+def test_spans_are_profiler_annotations(span_framework, monkeypatch,
+                                        profiled):
+    """Under a recording ``torch.profiler`` every span is a user
+    annotation of its name, nested as the spans nest; with none recording
+    no ``record_function`` is entered."""
+    import contextlib
+
+    import torch
+    from repro_torch.core.build import build_pairwise_hist
+    entered = []
+
+    class Counting(torch.profiler.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    with prof if profiled else contextlib.nullcontext():
+        syn = build_pairwise_hist(
+            span_framework.compressed, span_framework.preprocessed.columns,
+            BuildParams(**SPAN_PARAMS), device="cpu")
+    spans = [ev for ev in syn.build_stats["timeline"]
+             if ev["kind"] == "phase"]
+    assert len(spans) > 10
+    if not profiled:
+        assert entered == []
+        return
+    assert entered == [ev["name"] for ev in spans]
+    names = {ev["name"] for ev in spans}
+    notes = sorted((e for e in prof.events()
+                    if e.is_user_annotation and e.name in names),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in notes] == [ev["name"] for ev in spans]
+    events = syn.build_stats["timeline"]
+    index = {id(e): i for i, e in enumerate(notes)}
+    span_index = {id(ev): i for i, ev in enumerate(spans)}
+    for e, ev in zip(notes, spans):
+        up = e.cpu_parent
+        while up is not None and id(up) not in index:
+            up = up.cpu_parent
+        want = (None if ev["parent"] is None
+                else span_index[id(events[ev["parent"]])])
+        assert (None if up is None else index[id(up)]) == want
 
 
 def test_compact_occupancy_hist_ledger(framework):
@@ -274,13 +448,50 @@ def test_compact_occupancy_hist_ledger(framework):
     assert sum(n * v for n, v in hist.items()) == comp["pair_rounds"]
 
 
+def test_counts_go_to_the_innermost_open_span():
+    """``to_device`` / ``to_host`` count on the innermost open span of the
+    current timeline (an empty copy not at all), ``counts`` sums a span
+    and its descendants by name, ``totals`` the whole timeline; with no
+    span open nothing is counted anywhere."""
+    import torch
+    from repro_torch.obs.timeline import to_device, to_host
+    tl = BuildTimeline()
+    to_host(to_device(np.zeros(4), "cpu"))
+    with tl.phase("outer"):
+        to_device([1, 2, 3], "cpu", torch.int64)
+        with tl.phase("inner") as span:
+            to_host(to_device(np.zeros(5, bool), "cpu"))
+            to_device([], "cpu", torch.int64)
+            tl.count("rounds", 3)
+            span["done"] = True
+        with tl.phase("inner"):
+            to_host(to_device(2.0, "cpu", torch.float64))
+    outer, inner, inner2 = tl.events
+    assert outer["counts"] == {"h2d_copies": 1, "h2d_bytes": 24}
+    assert inner["counts"] == {"h2d_copies": 1, "h2d_bytes": 5,
+                               "d2h_reads": 1, "rounds": 3}
+    assert inner["done"] and inner["parent"] == inner2["parent"] == 0
+    assert tl.counts() == {
+        "outer": {"h2d_copies": 3, "h2d_bytes": 37, "d2h_reads": 2,
+                  "rounds": 3},
+        "inner": {"h2d_copies": 2, "h2d_bytes": 13, "d2h_reads": 2,
+                  "rounds": 3}}
+    assert tl.totals() == tl.counts()["outer"]
+    to_host(to_device(np.zeros(4), "cpu"))
+    assert tl.totals() == tl.counts()["outer"]
+
+
 def test_timeline_disabled_records_nothing():
+    from repro_torch.obs import timeline as tlmod
     tl = BuildTimeline(enabled=False)
-    with tl.phase("sample"):
-        pass
-    tl.add("x", 0.0, 1.0)
+    with tl.phase("sample") as span:
+        span["x"] = 1
+        tl.count("d2h_reads")
+        tlmod.to_host(tlmod.to_device([1.0], "cpu"))
     tl.event("y")
     assert tl.events == [] and tl.summary() == {}
+    assert tl.counts() == {} and tl.totals() == {}
+    assert tlmod._CURRENT.get() is None
 
 
 # ----------------------------------------------------------------- metrics
