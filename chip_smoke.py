@@ -52,7 +52,7 @@ Phases, each printing one JSON line:
                table; it reaches the k2 = 128 rung) and one of 100,000
                rows whose fixed chunk starts at k2 = 64 and must re-run at
                128 (``escalation_data``); each build's ``pair_phase_s``,
-               its split into timeline intervals (host presort, upload,
+               its split into timeline intervals (column upload, presort,
                launches, metadata), capacity rungs and K3/K4 launches are
                printed; then K3/K4 are held against their plain versions
                on the first inputs of each shape that the fixed-chunk

@@ -9,15 +9,18 @@ Pipeline (the reference package's, step for step):
   3. pair histograms under one of three schedulers (``BuildParams``),
      bit-for-bit equal to one another:
        * convergence-compacting (the default; ``build_pairs_compact`` /
-         ``refine.refine_2d_compact``): per-column presorts are shared
-         across pairs (``_column_ranks``, host NumPy), a group of pairs is
-         uploaded once, ``pair_chunk`` slots refine it with drain/backfill
-         on the host, and capacity-guard escalation re-queues only the
-         capped pairs one rung up the k2 ladder;
+         ``refine.refine_2d_compact``): the sample's columns are uploaded
+         once, per-column ranks are shared across pairs
+         (``refine.column_ranks``), a group of pairs is gathered and
+         presorted on the device (``refine.presort_pairs``), ``pair_chunk``
+         slots refine it with drain/backfill on the host, and
+         capacity-guard escalation re-queues only the capped pairs one
+         rung up the k2 ladder;
        * fixed chunk (``compact_drain=False``; ``build_pairs_batched`` /
-         ``refine.build_pairs_device``): chunks of ``pair_chunk`` pairs
-         refine until their slowest pair converges, and a chunk whose
-         guard binds re-runs whole one rung up;
+         ``refine.build_pairs_device``): chunks of ``pair_chunk`` pairs,
+         presorted on the device as above, refine until their slowest pair
+         converges, and a chunk whose guard binds re-runs whole one rung
+         up;
        * per pair (``pair_batched=False``; ``build_pairs_sequential`` /
          ``refine.refine_2d``): the reference's oracle and benchmark
          baseline, one pair and one host check a round at a time.
@@ -166,8 +169,9 @@ def build_pairs_sequential(sample: np.ndarray, hists: list, params, crit2,
 def _column_ranks(sample_nn: np.ndarray) -> np.ndarray:
     """Per-column dense ranks (d, N): ties share a rank, order preserved.
 
-    One sort + one searchsorted *per column*, shared across every pair the
-    column appears in (``_presort_pairs_host``).
+    One sort + one searchsorted *per column*. The host oracle of
+    ``refine.column_ranks``, which the build runs on the device; tests use
+    it to make ``_presort_pairs_host``'s rank rows and expected values.
     """
     n, d = sample_nn.shape
     xs = np.sort(sample_nn, axis=0)
@@ -186,6 +190,10 @@ def _presort_pairs_host(x, y, valid, rx=None, ry=None):
     ``_column_ranks``) each order is one stable argsort of the composite
     integer key ``rank_primary * (N+1) + rank_secondary``, which gives the
     same permutation as the two-key float lexsort.
+
+    The host oracle of ``refine.presort_pairs``, which the build runs on
+    the device (``_presort_group``); tests use it to make the schedulers'
+    presorted inputs and to hold the device presort to, bit for bit.
     """
     n_pairs, n = x.shape
     xo1 = np.empty_like(x)
@@ -215,6 +223,44 @@ def _presort_pairs_host(x, y, valid, rx=None, ry=None):
     new2[:, 0] = True
     new2[:, 1:] = yo2[:, 1:] != yo2[:, :-1]
     return xo1, yo1, vo1, new1, xo2, yo2, vo2, new2
+
+
+def _upload_sample(sample: np.ndarray, device, tl: BuildTimeline):
+    """The batched schedulers' presort inputs, once a build: the sample's
+    columns (d, N) f64 with NaN as 0.0 and their (d, N) NaN mask in one
+    ``pair_upload`` span, then the column ranks on the device in a
+    ``pair_presort`` span of no pairs (``presort_ranks``)."""
+    with tl.phase("pair_upload", d=sample.shape[1]):
+        cols = to_device(
+            np.ascontiguousarray(np.nan_to_num(sample, nan=0.0).T), device,
+            torch.float64)
+        nanm = to_device(np.ascontiguousarray(np.isnan(sample).T), device)
+    with tl.phase("pair_presort", pairs=0):
+        with tl.phase("presort_ranks", wait=device):
+            ranks = refine.column_ranks(cols)
+    return cols, nanm, ranks
+
+
+def _presort_group(part, size: int, cols, nanm, ranks, device,
+                   tl: BuildTimeline) -> tuple:
+    """One group's presort on the device, ``_presort_pairs_host``'s eight
+    (size, N) arrays for the pairs ``part`` (lanes past them are empty:
+    zeros, no valid rows). ``presort_gather`` uploads the pairs' column
+    indices and gathers x, y, their ranks and validity; ``presort_sort``
+    sorts the composite rank keys (``refine.presort_pairs``)."""
+    pad = size - len(part)
+    with tl.phase("presort_gather", wait=device):
+        a = to_device([ab[0] for ab in part], device, torch.int64)
+        b = to_device([ab[1] for ab in part], device, torch.int64)
+        x, y, rx, ry = cols[a], cols[b], ranks[a], ranks[b]
+        valid = ~(nanm[a] | nanm[b])
+        if pad:
+            x, y, rx, ry, valid = (
+                torch.nn.functional.pad(t, (0, 0, 0, pad))
+                for t in (x, y, rx, ry, valid))
+    with tl.phase("presort_sort", wait=device):
+        tl.count("presort_device_pairs", len(part))
+        return refine.presort_pairs(x, y, valid, rx, ry)
 
 
 def _pow2_floor(n: int) -> int:
@@ -249,8 +295,9 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     device->host transfer per chunk. Returns {(a, b): PairHist} without
     fold maps; records each launch's (size, capacity) into
     ``stats["pair_launches"]`` and, when a ``timeline`` is passed, one
-    ``batched_launch`` span per launch (its metadata included) and a
-    ``pair_presort`` and a ``pair_upload`` span per chunk.
+    ``batched_launch`` span per launch (its metadata included), the
+    ``pair_upload`` and column ranks of ``_upload_sample`` and a
+    ``pair_presort`` span per chunk (``_presort_group``).
 
     Each chunk refines at the smallest capacity rung that fits its initial
     grids; if any pair's capacity guard binds, the whole chunk re-runs one
@@ -260,10 +307,9 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     """
     tl = timeline or _NO_TIMELINE
     K2 = params.k2_cap
-    n_s, d = sample.shape
+    d = sample.shape[1]
     keys = _pair_keys(d)
-    sample_nn = np.nan_to_num(sample, nan=0.0)
-    nanmask = np.isnan(sample)
+    cols, nanm, ranks = _upload_sample(sample, device, tl)
     # The chunk cap rounds DOWN to a power of two (the memory bound); the
     # tail chunk pads up to the next power of two >= its size.
     chunk = _pow2_floor(int(params.pair_chunk))
@@ -271,24 +317,14 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
     raw_pairs = {}
     for start in range(0, len(keys), chunk):
         part = keys[start:start + chunk]
+        size = _pow2_ceil(len(part))
+        kx0 = np.ones(size, np.int64)
+        ky0 = np.ones(size, np.int64)
+        for p, (a, b) in enumerate(part):
+            kx0[p] = min(int(hists[a].k), K2)
+            ky0[p] = min(int(hists[b].k), K2)
         with tl.phase("pair_presort", pairs=len(part)):
-            size = _pow2_ceil(len(part))
-            with tl.phase("presort_gather"):
-                x = np.zeros((size, n_s), np.float64)
-                y = np.zeros((size, n_s), np.float64)
-                valid = np.zeros((size, n_s), bool)
-                kx0 = np.ones(size, np.int64)
-                ky0 = np.ones(size, np.int64)
-                for p, (a, b) in enumerate(part):
-                    x[p] = sample_nn[:, a]
-                    y[p] = sample_nn[:, b]
-                    valid[p] = ~(nanmask[:, a] | nanmask[:, b])
-                    kx0[p] = min(int(hists[a].k), K2)
-                    ky0[p] = min(int(hists[b].k), K2)
-            with tl.phase("presort_sort"):
-                host = _presort_pairs_host(x, y, valid)
-        with tl.phase("pair_upload", pairs=len(part)):
-            pres = tuple(to_device(arr, device) for arr in host)
+            pres = _presort_group(part, size, cols, nanm, ranks, device, tl)
         need = int(max(kx0.max(), ky0.max()))
         for cap in _cap_ladder(need, K2, params.k2_start):
             with tl.phase("batched_launch", cap=cap, size=size,
@@ -311,6 +347,7 @@ def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
             capped = host[4]
             if cap >= K2 or not capped[: len(part)].any():
                 break
+        del pres  # before the next chunk's presort is made
         fields = host[:4] + host[5:]    # drop the capped flag
         for p, (a, b) in enumerate(part):
             raw_pairs[(a, b)] = _trim_pair(*(v[p] for v in fields))
@@ -344,21 +381,17 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     slot-rounds its launches' slot counts could have run, and rounds by
     active-slot count in ``occupancy_hist``); a ``timeline`` gets one
     ``compact_launch`` span per rung and a ``rung_escalation`` marker when
-    pairs move up, one ``pair_presort`` span for the column ranks
-    (``presort_ranks``) and, per group, a ``pair_presort`` (its
-    ``presort_gather`` and ``presort_sort``), a ``pair_upload`` and a
-    ``pair_metadata`` span (the metadata launches, their transfers and the
-    trim).
+    pairs move up, the ``pair_upload`` of the sample's columns and the
+    ``pair_presort`` span of the column ranks (``presort_ranks``) once, and,
+    per group, a ``pair_presort`` (its ``presort_gather`` and
+    ``presort_sort``) and a ``pair_metadata`` span (the metadata launches,
+    their transfers and the trim).
     """
     tl = timeline or _NO_TIMELINE
     K2 = params.k2_cap
-    n_s, d = sample.shape
+    d = sample.shape[1]
     keys = _pair_keys(d)
-    with tl.phase("pair_presort", pairs=0):
-        sample_nn = np.nan_to_num(sample, nan=0.0)
-        nanmask = np.isnan(sample)
-        with tl.phase("presort_ranks"):
-            ranks = _column_ranks(sample_nn)
+    cols, nanm, ranks = _upload_sample(sample, device, tl)
     slots = _pow2_floor(int(params.pair_chunk))
     group_cap = slots * _COMPACT_QUEUE
     launches = []
@@ -369,26 +402,12 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
     for start in range(0, len(keys), group_cap):
         part = keys[start:start + group_cap]
         g = len(part)
+        kx0g = np.array([min(int(hists[a].k), K2) for a, _ in part],
+                        np.int64)
+        ky0g = np.array([min(int(hists[b].k), K2) for _, b in part],
+                        np.int64)
         with tl.phase("pair_presort", pairs=g):
-            with tl.phase("presort_gather"):
-                x = np.empty((g, n_s), np.float64)
-                y = np.empty((g, n_s), np.float64)
-                valid = np.empty((g, n_s), bool)
-                rx = np.empty((g, n_s), np.int64)
-                ry = np.empty((g, n_s), np.int64)
-                kx0g = np.ones(g, np.int64)
-                ky0g = np.ones(g, np.int64)
-                for p, (a, b) in enumerate(part):
-                    x[p] = sample_nn[:, a]
-                    y[p] = sample_nn[:, b]
-                    valid[p] = ~(nanmask[:, a] | nanmask[:, b])
-                    rx[p], ry[p] = ranks[a], ranks[b]
-                    kx0g[p] = min(int(hists[a].k), K2)
-                    ky0g[p] = min(int(hists[b].k), K2)
-            with tl.phase("presort_sort"):
-                host = _presort_pairs_host(x, y, valid, rx, ry)
-        with tl.phase("pair_upload", pairs=g):
-            pres = tuple(to_device(arr, device) for arr in host)
+            pres = _presort_group(part, g, cols, nanm, ranks, device, tl)
 
         ladder = _cap_ladder(2, K2, params.k2_start)
         queue: dict[int, list] = {}
@@ -463,6 +482,7 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
                         ex_m[p], ey_m[p], kx_m[p], ky_m[p],
                         *(v[p] for v in meta_h))
             span["launches"] = len(by_cap)
+        del pres  # before the next group's presort is made
     if stats is not None:
         stats["pair_launches"] = launches
         stats["compaction"] = comp

@@ -413,30 +413,39 @@ def pair_metadata(x, y, valid, ex, ey, kx: int, ky: int, *, k2: int):
 # ---------------------------------------------------------------------------
 
 
-def presort_pairs(x, y, valid):
-    """Per-pair lexsorts on the device, done once per chunk.
+def column_ranks(cols):
+    """Per-column ranks (d, N) int64 of (d, N) columns without NaN: the
+    number of the column's values below each value, so ties share a rank
+    and the order is kept. One sort and one searchsorted for all columns;
+    ``build._column_ranks`` on the device, to the integer."""
+    xs = torch.sort(cols, dim=1).values
+    return torch.searchsorted(xs, cols, side="left")
 
-    x/y/valid: (P, N). Invalid rows sort to the tail (+inf keys). Returns
-    the points of every pair in (x, y) order and in (y, x) order plus
-    run-start flags, ``build._presort_pairs_host``'s layout:
+
+def presort_pairs(x, y, valid, rx, ry):
+    """Per-pair presorts on the device, done once per chunk or group.
+
+    x/y/valid: (P, N); rx/ry: their rows of ``column_ranks``. Invalid rows
+    sort to the tail. Returns the points of every pair in (x, y) order and
+    in (y, x) order plus run-start flags, ``build._presort_pairs_host``'s
+    layout and dtypes:
 
       xo1/yo1/vo1/new1: values, validity and x-run starts in (x, y) order;
       xo2/yo2/vo2/new2: values, validity and y-run starts in (y, x) order.
 
-    Each lexsort is a stable sort on the secondary key, then a stable sort
-    on the primary key, so ties keep their row order as in ``np.lexsort``.
+    Each order is one stable sort of the composite key
+    ``rank_primary * (N+1) + rank_secondary`` ((N+1)**2 on invalid rows),
+    the host's keys, which give the permutation of the reference's two-key
+    float lexsort (ties keep their row order).
     """
-    inf = _full_like(x, _INF)
-    key_x = torch.where(valid, x, inf)
-    key_y = torch.where(valid, y, inf)
+    n1 = x.shape[1] + 1
 
-    def lexsort(primary, secondary):
-        o = torch.sort(secondary, dim=1, stable=True).indices
-        by = torch.sort(torch.gather(primary, 1, o), dim=1, stable=True)
-        return torch.gather(o, 1, by.indices)
+    def order(primary, secondary):
+        key = torch.where(valid, primary * n1 + secondary, n1 * n1)
+        return torch.sort(key, dim=1, stable=True).indices
 
-    o1 = lexsort(key_x, key_y)
-    o2 = lexsort(key_y, key_x)
+    o1 = order(rx, ry)
+    o2 = order(ry, rx)
     xo1, yo1, vo1 = (torch.gather(a, 1, o1) for a in (x, y, valid))
     xo2, yo2, vo2 = (torch.gather(a, 1, o2) for a in (x, y, valid))
     new1 = torch.ones_like(vo1)

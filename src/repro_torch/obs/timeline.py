@@ -7,11 +7,11 @@ order the spans open. ``build_pairwise_hist`` opens one ``phase(...)`` per
 pipeline stage (seed edges, sample, 1-D refine, pair phase, union regrid,
 folds) and the stages open theirs inside: the sample's decode
 (``decompress_rows``) and critical-value table (``crit_table``); the
-batched schedulers' host presort (``pair_presort``, split into
-``presort_ranks``, ``presort_gather`` and ``presort_sort``), its upload
-(``pair_upload``), one ``compact_launch`` / ``batched_launch`` per launch
-and the compacting scheduler's metadata (``pair_metadata``), with
-``rung_escalation`` markers.
+batched schedulers' upload of the sample's columns (``pair_upload``),
+their device presort (``pair_presort``, split into ``presort_ranks``,
+``presort_gather`` and ``presort_sort``), one ``compact_launch`` /
+``batched_launch`` per launch and the compacting scheduler's metadata
+(``pair_metadata``), with ``rung_escalation`` markers.
 
 Events are plain dicts (JSON-ready, survive a trip through
 ``build_stats``): ``{"name", "t0", "t1", "kind": "phase"|"event",
@@ -53,13 +53,16 @@ class BuildTimeline:
         self._open: list[int] = []
 
     @contextmanager
-    def phase(self, name: str, **attrs):
+    def phase(self, name: str, wait=None, **attrs):
         """Time a block as a span inside the innermost open one; yields the
         span's dict, so attributes known only at the end can be set on it.
 
         A span over device work ends on a host read of that work
-        (``to_host``) or a blocking copy, so its interval is wall-clock,
-        not dispatch time."""
+        (``to_host``), a blocking copy or, with ``wait`` (a device), a
+        completion wait: the block's end waits for the device's current
+        stream (a stream synchronize on CUDA, nothing on the CPU; no
+        ``d2h_reads``). So its interval is wall-clock, not dispatch
+        time."""
         if not self.enabled:
             yield {}
             return
@@ -76,6 +79,8 @@ class BuildTimeline:
         ev["t0"] = time.perf_counter()
         try:
             yield ev
+            if wait is not None and torch.device(wait).type == "cuda":
+                torch.cuda.current_stream(wait).synchronize()
         finally:
             ev["t1"] = time.perf_counter()
             self._open.pop()

@@ -143,18 +143,19 @@ def test_build_does_not_mutate_caller_columns(data):
 
 
 def test_device_presort_matches_host_presort():
-    """The device presort (two stable torch sorts per order) and the host
-    np.lexsort used by the build produce identical layouts."""
+    """The device presort (one stable torch sort of the rank key per
+    order) and the host's float np.lexsort produce identical layouts."""
     from repro_torch.core.build import _presort_pairs_host
-    from repro_torch.core.refine import presort_pairs
+    from repro_torch.core.refine import column_ranks, presort_pairs
     rng = np.random.default_rng(2)
     p, n = 3, 400
     x = rng.integers(0, 30, (p, n)).astype(float)   # many ties
     y = rng.integers(0, 30, (p, n)).astype(float)
     valid = rng.random((p, n)) < 0.9
     host = _presort_pairs_host(x, y, valid)
-    dev = presort_pairs(torch.from_numpy(x), torch.from_numpy(y),
-                        torch.from_numpy(valid))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    dev = presort_pairs(tx, ty, torch.from_numpy(valid), column_ranks(tx),
+                        column_ranks(ty))
     for name, h, d in zip("xo1 yo1 vo1 new1 xo2 yo2 vo2 new2".split(),
                           host, dev):
         assert d.dtype == torch.from_numpy(h).dtype, name

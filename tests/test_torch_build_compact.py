@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.build import (_column_ranks, _pad_edges,
-                                    _presort_pairs_host, build_pairwise_hist)
+from repro_torch.core.build import (_NO_TIMELINE, _column_ranks,
+                                    _pad_edges, _pair_keys, _presort_group,
+                                    _presort_pairs_host, _upload_sample,
+                                    build_pairwise_hist)
 from repro_torch.core.types import BuildParams, ColumnInfo
+from test_torch_kernels import cuda  # noqa: F401 — the card fixture
 
 
 def _cols(d):
@@ -260,3 +263,80 @@ def test_all_nan_pair_column():
     cmp_ = _build(data, p_cmp)
     _assert_same_synopsis(seq, cmp_)
     assert float(cmp_.pairs[(0, 1)].H.sum()) == 0.0
+
+
+def _presort_table(n, seed=3):
+    """Columns that stress the presort: heavy ties, NaNs, -0.0 beside 0.0,
+    a column that is all NaN and a constant one."""
+    rng = np.random.default_rng(seed)
+    ties = rng.integers(0, 6, n).astype(float)
+    nans = rng.integers(0, 300, n).astype(float)
+    nans[rng.random(n) < 0.2] = np.nan
+    zeros = rng.choice([-1.0, -0.0, 0.0, 2.0], n)
+    wide = np.round(rng.normal(0, 1e4, n))
+    return np.stack([ties, nans, zeros, np.full(n, np.nan), np.full(n, 7.0),
+                     wide], 1)
+
+
+def _host_presort(sample, part, size):
+    """``_presort_pairs_host`` on the pairs ``part`` with the host ranks,
+    lanes past them zero and invalid."""
+    nn = np.nan_to_num(sample, nan=0.0).T
+    nan = np.isnan(sample).T
+    ranks = _column_ranks(nn.T)
+    x = np.zeros((size, nn.shape[1]))
+    y = np.zeros_like(x)
+    rx = np.zeros(x.shape, np.int64)
+    ry = np.zeros_like(rx)
+    valid = np.zeros(x.shape, bool)
+    for p, (a, b) in enumerate(part):
+        x[p], y[p], rx[p], ry[p] = nn[a], nn[b], ranks[a], ranks[b]
+        valid[p] = ~(nan[a] | nan[b])
+    return ranks, _presort_pairs_host(x, y, valid, rx, ry)
+
+
+def _assert_bits_equal(got, want, name):
+    got = got.cpu().numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if got.dtype == np.float64:   # -0.0 and 0.0 apart
+        got, want = got.view(np.int64), want.view(np.int64)
+    np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def _check_device_presort(sample, part, size, device):
+    cols, nanm, ranks = _upload_sample(sample, device, _NO_TIMELINE)
+    got = _presort_group(part, size, cols, nanm, ranks, device,
+                         _NO_TIMELINE)
+    want_ranks, want = _host_presort(sample, part, size)
+    _assert_bits_equal(ranks, want_ranks, "ranks")
+    for name, g, w in zip("xo1 yo1 vo1 new1 xo2 yo2 vo2 new2".split(),
+                          got, want):
+        _assert_bits_equal(g, w, name)
+
+
+@pytest.mark.parametrize("part, size", [
+    (_pair_keys(6), 15),          # every pair: one compacting group
+    (_pair_keys(6)[:1], 1),       # a group of one pair
+    ([(2, 3)], 1),                # -0.0 and 0.0 against an all-NaN column
+    (_pair_keys(6)[5:8], 4),      # a fixed chunk padded to a power of two
+])
+def test_device_presort_matches_host_presort(part, size):
+    """The build's device presort (``_upload_sample``'s column ranks,
+    ``_presort_group``'s gathers and composite-key sorts) is the host
+    oracle's (``_column_ranks``, ``_presort_pairs_host`` with ranks) bit
+    for bit: ranks, all eight arrays and their dtypes."""
+    _check_device_presort(_presort_table(3000), part, size, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs, size", [
+    (32, 32),    # the benchmark cells' compacting group
+    (5, 8),      # a fixed chunk padded to a power of two
+])
+def test_cuda_device_presort_matches_host_presort(cuda, n_pairs, size):
+    """The same on the card at the benchmark cells' group shape (32 pairs
+    of 100,000 rows) and for a padded fixed chunk of that length."""
+    sample = np.concatenate([_presort_table(100_000, seed=s)
+                             for s in (4, 5)], 1)
+    part = _pair_keys(sample.shape[1])[:n_pairs]
+    _check_device_presort(sample, part, size, cuda)

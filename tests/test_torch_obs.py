@@ -238,10 +238,10 @@ def test_build_timeline_and_phase_summary(framework):
      ("pair_presort", "pair_upload", "batched_launch")),
 ])
 def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
-    """The batched schedulers time their host presort, its upload, their
-    launches and (compacting) their metadata as child spans of the pair
-    phase, apart from one another; the launches count the host's reads of
-    the device and the upload its copies."""
+    """The batched schedulers time the upload of the sample's columns,
+    their device presort, their launches and (compacting) their metadata
+    as child spans of the pair phase, apart from one another; the launches
+    count the host's reads of the device and the upload its two copies."""
     from repro_torch.core.build import build_pairwise_hist
     from repro_torch.core.types import ColumnInfo
     data = np.stack(list(_table().values()), 1)
@@ -269,8 +269,8 @@ def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
     assert all(ev["counts"]["d2h_reads"] > 0 for ev in inner
                if ev["name"] == launch)
     counts = stats["counts"]
-    assert counts["pair_upload"]["h2d_copies"] == 8 * sum(
-        ev["name"] == "pair_upload" for ev in events)
+    assert sum(ev["name"] == "pair_upload" for ev in events) == 1
+    assert counts["pair_upload"]["h2d_copies"] == 2
     assert "d2h_reads" not in counts["pair_upload"]
 
 
@@ -330,7 +330,7 @@ def _check_names(stats):
     assert n == {
         # the spans the build had before
         "sample": 1, "refine_1d": 1, "pair_phase": 1, "union_regrid": 1,
-        "folds": 1, "pair_presort": 1 + groups, "pair_upload": groups,
+        "folds": 1, "pair_presort": 1 + groups, "pair_upload": 1,
         "compact_launch": launches, "pair_metadata": groups,
         # and the new ones
         "seed_edges": 1, "decompress_rows": 1, "crit_table": 1,
@@ -349,6 +349,10 @@ def _check_names(stats):
                    for ev in by_name[name])
     (rank_span,) = by_name["presort_ranks"]
     assert events[rank_span["parent"]]["pairs"] == 0
+    assert [ev["counts"]["presort_device_pairs"]
+            for ev in by_name["presort_sort"]] == [8, 2]
+    assert stats["counts"]["presort_sort"]["presort_device_pairs"] == \
+        stats["count_totals"]["presort_device_pairs"] == stats["n_pairs"]
     assert sum(ev["name"] == "rung_escalation" for ev in events) > 0
 
 
@@ -363,12 +367,18 @@ def _check_d2h(stats):
 
 
 def _check_h2d(stats):
-    """The upload's bytes are the presort's: x, y (f64) and validity and
-    run flags (bool) in two orders, for every pair and sampled row."""
+    """The pair phase's upload is the sample's columns (f64) and NaN mask
+    (bool), once; each group's presort uploads its pairs' two column
+    index lists (int64) and nothing else."""
     n_s = stats["rows_decoded"]
+    (up,) = [ev for ev in stats["timeline"] if ev["name"] == "pair_upload"]
     upload = stats["counts"]["pair_upload"]
-    assert upload["h2d_bytes"] == stats["n_pairs"] * n_s * 2 * (8 + 8 + 1 + 1)
-    assert upload["h2d_copies"] == 8 * 2
+    assert upload == {"h2d_copies": 2, "h2d_bytes": up["d"] * n_s * (8 + 1)}
+    gather = stats["counts"]["presort_gather"]
+    assert gather == {"h2d_copies": 2 * 2,
+                      "h2d_bytes": 2 * 8 * stats["n_pairs"]}
+    assert stats["counts"]["pair_presort"] == dict(
+        gather, presort_device_pairs=stats["n_pairs"])
     totals = stats["count_totals"]
     assert totals["h2d_bytes"] >= upload["h2d_bytes"]
     assert totals == {
@@ -384,7 +394,7 @@ def test_build_span_tree(span_build, check):
     """A small compressed build's span tree: every span inside its parent;
     the earlier spans as often as before beside the new ones; the pair
     phase's reads of the device as the compacting loop implies; the
-    presort upload's bytes."""
+    column upload's and the presort's copies and bytes."""
     check(span_build)
 
 
@@ -479,6 +489,36 @@ def test_counts_go_to_the_innermost_open_span():
     assert tl.totals() == tl.counts()["outer"]
     to_host(to_device(np.zeros(4), "cpu"))
     assert tl.totals() == tl.counts()["outer"]
+
+
+@pytest.mark.parametrize("device, waits", [("cpu", 0), ("cuda", 1),
+                                           (None, 0)])
+def test_phase_completion_wait(monkeypatch, device, waits):
+    """``phase(..., wait=device)`` ends the span on a completion wait: a
+    synchronize of the device's current stream on CUDA, before the span's
+    end is read, and nothing on the CPU. The wait is no ``d2h_reads`` and
+    no attribute of the span; a block that raises does not wait."""
+    import torch
+    synced = []
+
+    class Stream:
+        def synchronize(self):
+            synced.append(time.perf_counter())
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: Stream())
+    tl = BuildTimeline()
+    with tl.phase("presort_sort", wait=device, pairs=3):
+        tl.count("presort_device_pairs", 3)
+    (ev,) = tl.events
+    assert len(synced) == waits
+    assert all(ev["t0"] <= t <= ev["t1"] for t in synced)
+    assert ev["counts"] == {"presort_device_pairs": 3}
+    assert "wait" not in ev and ev["pairs"] == 3
+    with pytest.raises(ValueError):
+        with tl.phase("presort_gather", wait=device):
+            raise ValueError
+    assert len(synced) == waits and "counts" not in tl.events[1]
 
 
 def test_timeline_disabled_records_nothing():

@@ -177,8 +177,10 @@ def test_presort_pairs_matches_reference():
     valid = rng.random((p, n)) < 0.9
     want = ref_refine.presort_pairs(jnp.asarray(x), jnp.asarray(y),
                                     jnp.asarray(valid))
-    got = refine.presort_pairs(torch.from_numpy(x), torch.from_numpy(y),
-                               torch.from_numpy(valid))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    got = refine.presort_pairs(tx, ty, torch.from_numpy(valid),
+                               refine.column_ranks(tx),
+                               refine.column_ranks(ty))
     for name, g, w in zip("xo1 yo1 vo1 new1 xo2 yo2 vo2 new2".split(),
                           got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
