@@ -9,9 +9,17 @@
         SQL --parse/encode--> QueryEngine --> (estimate, lower, upper)
 
 Data lives compressed (CompressedTable); the synopsis answers queries without
-touching it. ``append_rows`` supports incremental ingestion (compressed store
-updated immediately; synopsis marked stale and rebuilt lazily) — the paper's
-"more frequent updates" story.
+touching it. The framework holds the raw table it last ingested (by
+reference, no copy): ``append_rows`` queues rows behind it, ``expire_rows``
+drops its oldest ones, each marking the synopsis stale, and ``rebuild()``
+ingests what is held then — a rolling window fed by appends, the paper's
+"more frequent updates" story. Nothing is incremental: a rebuild is the
+whole ingest of the held rows.
+
+``ingest`` and ``rebuild`` record a timeline (``obs/timeline.py``):
+``merge``, ``preprocess``, ``gd_compress`` and ``build`` spans with the
+children and counters that pre-processing and GreedyGD record on it,
+published in ``timings`` with the epoch.
 
 The synopsis is built on ``device`` (``None``: the CUDA device, raising
 without one; ``"cpu"`` runs the kernels' plain versions).
@@ -31,6 +39,7 @@ from repro_torch.core.types import BuildParams
 from repro_torch.device import resolve_device
 from repro_torch.gd.greedygd import GreedyGD
 from repro_torch.gd.preprocess import preprocess_table
+from repro_torch.obs.timeline import BuildTimeline
 
 
 class AQPFramework:
@@ -50,7 +59,12 @@ class AQPFramework:
         self.compressed = None
         self.preprocessed = None
         self.synopsis = None
+        # The held rows: the raw table last ingested (None after
+        # ingest_compressed), the batches appended since, and how many of
+        # the oldest held rows are to be dropped at the next rebuild.
+        self._retained = None
         self._raw_batches = []
+        self._expired = 0
         # Serving-layer integration: the queryable state is the ATOMICALLY
         # published (engine, epoch, timings) triple — one tuple assignment
         # whenever it changes (ingest / append_rows / rebuild), so a reader
@@ -125,12 +139,19 @@ class AQPFramework:
     # -------------------------------------------------------------- ingest
 
     def ingest(self, table: dict) -> "AQPFramework":
-        t0 = time.perf_counter()
-        self.preprocessed = preprocess_table(table)
-        t1 = time.perf_counter()
+        """Pre-process, compress and build from raw ``table``, which the
+        framework then holds (by reference) as its retained rows; batches
+        appended and rows expired before it are dropped with the old
+        rows."""
+        return self._ingest(table, BuildTimeline())
+
+    def _ingest(self, table: dict, tl: BuildTimeline) -> "AQPFramework":
+        with tl.phase("preprocess"):
+            self.preprocessed = preprocess_table(table)
         if self.use_compression:
-            self.compressed = self.gd.compress(self.preprocessed.data)
-        t2 = time.perf_counter()
+            with tl.phase("gd_compress"):
+                self.compressed = self.gd.compress(self.preprocessed.data)
+        self._retained, self._raw_batches, self._expired = table, [], 0
         # GD-native construction: build directly from the compressed store —
         # only the N_s sampled rows are decoded and the bases seed the 1-D
         # edges (bit-for-bit equal to the raw+seed_edges path).
@@ -138,22 +159,26 @@ class AQPFramework:
         build_input = self.compressed if use_ct else self.preprocessed.data
         seed_edges = (GreedyGD.seed_edges(self.compressed)
                       if self.use_compression and not use_ct else None)
-        self.synopsis = build_pairwise_hist(
-            build_input, self.preprocessed.columns, self.params,
-            seed_edges=seed_edges, device=self.device)
-        t3 = time.perf_counter()
+        with tl.phase("build"):
+            self.synopsis = build_pairwise_hist(
+                build_input, self.preprocessed.columns, self.params,
+                seed_edges=seed_edges, device=self.device)
         engine = QueryEngine(self.synopsis, fastpath=self.fastpath)
-        # Pair-phase telemetry from the (batched) builder: rebuild() runs
-        # through here too, so serving-cache invalidation pauses
-        # (append_rows -> rebuild) are dominated by build_pairs_s.
+        # The build's pair-phase telemetry beside the ingest's own spans
+        # (rebuild() runs through here too).
         stats = self.synopsis.build_stats
+        phase_s = tl.summary()
         self._publish(engine, {
-            "preprocess_s": t1 - t0, "compress_s": t2 - t1,
-            "build_synopsis_s": t3 - t2,
+            "preprocess_s": phase_s["preprocess"],
+            "compress_s": phase_s.get("gd_compress", 0.0),
+            "build_synopsis_s": phase_s["build"],
             "build_pairs_s": stats.get("pair_phase_s", 0.0),
             "build_pair_mode": stats.get("mode", ""),
             "build_phase_s": dict(stats.get("phase_s", {})),
             "build_from_compressed": bool(stats.get("from_compressed")),
+            "ingest_timeline": tl.events,
+            "ingest_phase_s": phase_s,
+            "ingest_counts": tl.totals(),
         })
         return self
 
@@ -161,10 +186,12 @@ class AQPFramework:
         """Ingest an already-compressed table: build the synopsis straight
         from the ``CompressedTable`` (no raw matrix anywhere). ``columns``
         is the ``ColumnInfo`` list from pre-processing; this is the cold
-        catalog's rebuild path."""
+        catalog's rebuild path. No raw rows are held afterwards: pending
+        appends and expiries are dropped."""
         t0 = time.perf_counter()
         self.compressed = compressed
         self.preprocessed = None
+        self._retained, self._raw_batches, self._expired = None, [], 0
         self.synopsis = build_pairwise_hist(compressed, columns, self.params,
                                             device=self.device)
         t1 = time.perf_counter()
@@ -181,25 +208,47 @@ class AQPFramework:
         return self
 
     def append_rows(self, table: dict):
-        """Incremental ingestion: recompress the union (GD supports appends;
-        dictionary growth forces re-coding here), mark synopsis stale."""
+        """Queue ``table``'s rows (by reference) behind the held ones and
+        publish the synopsis stale. Nothing is compressed or built until
+        ``rebuild``."""
         self._raw_batches.append(table)
+        self.synopsis = None
+        self._publish(None)
+
+    def expire_rows(self, n: int):
+        """Mark the oldest ``n`` held rows (the retained table's first, then
+        the appended batches') to be dropped at the next ``rebuild``, and
+        publish the synopsis stale."""
+        held = sum(_n_rows(t) for t in self._held(self._retained))
+        if not 0 <= n <= held - self._expired:
+            raise ValueError(f"cannot expire {n} of the "
+                             f"{held - self._expired} rows held")
+        self._expired += n
         self.synopsis = None
         self._publish(None)
 
     def _ensure_fresh(self):
         if self.engine is None:
             raise RuntimeError(
-                "synopsis is stale after append_rows; call rebuild() first")
+                "synopsis is stale after append_rows or expire_rows; call "
+                "rebuild() first")
 
-    def rebuild(self, base_table: dict):
-        merged = dict(base_table)
-        for batch in self._raw_batches:
-            for k in merged:
-                merged[k] = np.concatenate([np.asarray(merged[k]),
-                                            np.asarray(batch[k])])
-        self._raw_batches = []
-        return self.ingest(merged)
+    def _held(self, base):
+        return ([] if base is None else [base]) + self._raw_batches
+
+    def rebuild(self, base_table: dict | None = None):
+        """Ingest the held rows less the expired ones: the retained table
+        (``base_table`` in its place where given), then the appended
+        batches, in that order. The result is the synopsis of a fresh
+        framework's ``ingest`` of the same rows."""
+        base = self._retained if base_table is None else base_table
+        if base is None and not self._raw_batches:
+            raise ValueError("no raw table is held: ingest one, or pass "
+                             "base_table")
+        tl = BuildTimeline()
+        with tl.phase("merge"):
+            merged = _concat_rows(self._held(base), self._expired)
+        return self._ingest(merged, tl)
 
     # -------------------------------------------------------------- queries
 
@@ -224,3 +273,26 @@ class AQPFramework:
 
     def size_bytes(self) -> int:
         return storagemod.synopsis_size_report(self.synopsis)["total"]
+
+
+def _n_rows(table: dict) -> int:
+    return len(next(iter(table.values())))
+
+
+def _concat_rows(tables: list, drop: int) -> dict:
+    """The rows of ``tables`` in order, less the first ``drop``, under the
+    first table's column names; a table left whole and alone is returned as
+    it is (no copy)."""
+    kept = []
+    for t in tables:
+        n = _n_rows(t)
+        if drop >= n:
+            drop -= n
+            continue
+        kept.append(t if drop == 0 else
+                    {k: np.asarray(v)[drop:] for k, v in t.items()})
+        drop = 0
+    if len(kept) == 1:
+        return kept[0]
+    return {k: np.concatenate([np.asarray(t[k]) for t in kept])
+            for k in tables[0]}

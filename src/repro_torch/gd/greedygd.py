@@ -30,6 +30,8 @@ import math
 
 import numpy as np
 
+from repro_torch.obs.timeline import count, span
+
 
 @dataclasses.dataclass
 class CompressedTable:
@@ -179,20 +181,30 @@ class GreedyGD:
     # ------------------------------------------------------------------- API
 
     def compress(self, data: np.ndarray) -> CompressedTable:
-        """Pre-processed (N, d) f64 matrix (NaN = missing) -> CompressedTable."""
-        codes, null, sentinels = self._encode_missing(np.asarray(data, np.float64))
-        widths = self._width(codes)
-        base_bits = self.plan(codes)
-        shift = (widths - base_bits).astype(np.uint64)
-        base_part = codes >> shift
-        dev_mask = ((np.uint64(1) << shift) - np.uint64(1))
-        deviations = [np.asarray(codes[:, i] & dev_mask[i])
-                      for i in range(codes.shape[1])]
-        view = np.ascontiguousarray(base_part).view(
-            np.dtype((np.void, base_part.dtype.itemsize * base_part.shape[1])))
-        _, first_idx, inverse = np.unique(view, return_index=True,
-                                          return_inverse=True)
-        bases = base_part[first_idx]
+        """Pre-processed (N, d) f64 matrix (NaN = missing) -> CompressedTable.
+
+        On the current timeline: spans ``gd_missing`` (sentinel codes),
+        ``gd_plan`` (widths and the base search) and ``gd_encode`` (shifts,
+        masks, base dedup); counters ``gd_rows_encoded`` and ``gd_bases``."""
+        data = np.asarray(data, np.float64)
+        count("gd_rows_encoded", data.shape[0])
+        with span("gd_missing"):
+            codes, null, sentinels = self._encode_missing(data)
+        with span("gd_plan"):
+            widths = self._width(codes)
+            base_bits = self.plan(codes)
+        with span("gd_encode"):
+            shift = (widths - base_bits).astype(np.uint64)
+            base_part = codes >> shift
+            dev_mask = ((np.uint64(1) << shift) - np.uint64(1))
+            deviations = [np.asarray(codes[:, i] & dev_mask[i])
+                          for i in range(codes.shape[1])]
+            view = np.ascontiguousarray(base_part).view(np.dtype(
+                (np.void, base_part.dtype.itemsize * base_part.shape[1])))
+            _, first_idx, inverse = np.unique(view, return_index=True,
+                                              return_inverse=True)
+            bases = base_part[first_idx]
+        count("gd_bases", bases.shape[0])
         return CompressedTable(
             bases=bases, base_ids=inverse.astype(np.uint32).reshape(-1),
             deviations=deviations, base_bits=base_bits, total_bits=widths,

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.types import ColumnInfo
+from repro_torch.obs.timeline import count, span
 
 
 class Preprocessed:
@@ -51,22 +52,34 @@ def _float_scale(x: np.ndarray, max_decimals: int = 6) -> float:
 
 
 def preprocess_column(values, name: str):
-    """One column -> (f64 codes with NaN, ColumnInfo)."""
+    """One column -> (f64 codes with NaN, ColumnInfo), in a
+    ``preprocess_categorical`` or ``preprocess_numeric`` span of the
+    current timeline."""
     arr = np.asarray(values)
-    if arr.dtype.kind in ("U", "S", "O"):  # categorical
-        str_vals = np.array(["\0NULL\0" if v is None or (isinstance(v, float)
-                             and np.isnan(v)) else str(v) for v in arr])
-        null = str_vals == "\0NULL\0"
-        vals, counts = np.unique(str_vals[~null], return_counts=True)
-        order = np.argsort(-counts, kind="stable")  # frequency-ranked
-        ranked = vals[order]
-        lut = {v: i for i, v in enumerate(ranked)}
-        out = np.full(arr.shape, np.nan)
-        out[~null] = [lut[v] for v in str_vals[~null]]
-        info = ColumnInfo(name=name, kind="categorical",
-                          categories=tuple(ranked.tolist()), mu=1.0)
-        return out, info
+    categorical = arr.dtype.kind in ("U", "S", "O")
+    with span("preprocess_categorical" if categorical
+              else "preprocess_numeric", column=name):
+        if categorical:
+            return _categorical(arr, name)
+        return _numeric(arr, name)
 
+
+def _categorical(arr: np.ndarray, name: str):
+    str_vals = np.array(["\0NULL\0" if v is None or (isinstance(v, float)
+                         and np.isnan(v)) else str(v) for v in arr])
+    null = str_vals == "\0NULL\0"
+    vals, counts = np.unique(str_vals[~null], return_counts=True)
+    order = np.argsort(-counts, kind="stable")  # frequency-ranked
+    ranked = vals[order]
+    lut = {v: i for i, v in enumerate(ranked)}
+    out = np.full(arr.shape, np.nan)
+    out[~null] = [lut[v] for v in str_vals[~null]]
+    info = ColumnInfo(name=name, kind="categorical",
+                      categories=tuple(ranked.tolist()), mu=1.0)
+    return out, info
+
+
+def _numeric(arr: np.ndarray, name: str):
     x = arr.astype(np.float64)
     null = ~np.isfinite(x)
     finite = x[~null]
@@ -83,10 +96,13 @@ def preprocess_column(values, name: str):
 
 
 def preprocess_table(table: dict) -> Preprocessed:
-    """{name: column array} -> Preprocessed (column order preserved)."""
+    """{name: column array} -> Preprocessed (column order preserved); its
+    rows are counted as ``preprocess_rows`` on the current timeline."""
     cols, mats = [], []
     for name, values in table.items():
         codes, info = preprocess_column(values, name)
         mats.append(codes)
         cols.append(info)
-    return Preprocessed(np.stack(mats, axis=1), cols)
+    out = Preprocessed(np.stack(mats, axis=1), cols)
+    count("preprocess_rows", out.n_rows)
+    return out

@@ -1,5 +1,5 @@
 """Build timeline: the span tree of one synopsis construction, with
-counters.
+counters; and the same recorder over an ingest around it.
 
 Construction is single-threaded host orchestration around device launches,
 so the recorder is an append-only list of dict events, one per span in the
@@ -30,6 +30,15 @@ counts
 While a ``torch.profiler`` records, every span is also a
 ``torch.profiler.record_function`` range of its name, so the spans nest in
 the profiler's own event list and in any trace it exports.
+
+``AQPFramework.ingest`` and ``rebuild`` record a timeline of their own
+(``merge``, ``preprocess``, ``gd_compress``, ``build``); pre-processing and
+GreedyGD open their children (``preprocess_categorical`` /
+``preprocess_numeric`` a column; ``gd_missing``, ``gd_plan``,
+``gd_encode``) and count (``preprocess_rows``, ``gd_rows_encoded``,
+``gd_bases``) through ``span`` and ``count``, which act on the current
+timeline and do nothing where none is current. The build inside keeps its
+own timeline in ``build_stats``.
 """
 from __future__ import annotations
 
@@ -140,6 +149,25 @@ class BuildTimeline:
 def _add(into: dict, more: dict):
     for k, v in more.items():
         into[k] = into.get(k, 0) + v
+
+
+@contextmanager
+def span(name: str, **attrs):
+    """``BuildTimeline.phase(name, **attrs)`` of the current timeline, inside
+    its innermost open span; nothing where no timeline is current."""
+    tl = _CURRENT.get()
+    if tl is None:
+        yield {}
+        return
+    with tl.phase(name, **attrs) as ev:
+        yield ev
+
+
+def count(name: str, n: int = 1):
+    """``BuildTimeline.count(name, n)`` of the current timeline, if any."""
+    tl = _CURRENT.get()
+    if tl is not None:
+        tl.count(name, n)
 
 
 def to_device(data, device, dtype=None) -> torch.Tensor:

@@ -36,7 +36,9 @@ def test_ingest_builds_the_reference_synopsis(frameworks):
     assert t["build_pair_mode"] == "compact"
     assert t["build_from_compressed"] is True
     assert t["build_pairs_s"] > 0 and "pair_phase" in t["build_phase_s"]
-    assert set(t) == set(ref.timings)
+    # The reference's keys, and the ingest's span tree beside them.
+    assert set(t) == set(ref.timings) | {"ingest_timeline", "ingest_phase_s",
+                                         "ingest_counts"}
 
 
 @pytest.mark.parametrize("sql,tol_pct", CASES)
