@@ -42,20 +42,20 @@ Phases, each printing one JSON line:
                answers);
   6. schedulers — rebuild the main table on the card (from the main
                phase's compressed table, the paper's defaults) with the
-               fixed-chunk scheduler (``compact_drain=False``) and the
-               per-pair loop (``pair_batched=False``) and require each
-               synopsis to equal the main phase's compacting one field by
-               field; then build two more tables under all three
-               schedulers with the same equality: a correlated one (the
-               construction bench's ``_correlated_data`` at 60,000 rows x
-               8 columns, drawn from seed 3, so not the bench's own
-               table; it reaches the k2 = 128 rung) and one of 100,000
-               rows whose fixed chunk starts at k2 = 64 and must re-run at
-               128 (``escalation_data``); each build's ``pair_phase_s``,
-               its split into timeline intervals (column upload, presort,
+               per-pair loop (``pair_batched=False``), the compacting
+               scheduler's oracle, and require its synopsis to equal the
+               main phase's compacting one field by field; then build two
+               more tables with both schedulers and the same equality: a
+               correlated one (the construction bench's
+               ``_correlated_data`` at 60,000 rows x 8 columns, drawn from
+               seed 3, so not the bench's own table; it reaches the
+               k2 = 128 rung) and one of 100,000 rows whose pairs start at
+               k2 = 64 and some of which must escalate to 128
+               (``escalation_data``); each build's ``pair_phase_s``, its
+               split into timeline intervals (column upload, presort,
                launches, metadata), capacity rungs and K3/K4 launches are
                printed; then K3/K4 are held against their plain versions
-               on the first inputs of each shape that the fixed-chunk
+               on the first inputs of each shape that the compacting
                builds launched;
   7. parity  — build a 60,000-row ``flights`` synopsis on the card and on
                the CPU and require them equal field by field;
@@ -236,7 +236,7 @@ SOURCES = {
 # K5 (``hist2d``) is launched by the sharded and bench phases.
 MAIN_KERNELS = ("batched_weightings", "fused_weightings", "batched_hist2d",
                 "batched_subbin_hist")
-# The 2-D kernels that a batched pair scheduler launches.
+# The 2-D kernels that the compacting pair scheduler launches.
 PAIR_KERNELS = ("batched_hist2d", "batched_subbin_hist")
 # The sharded phase: rows and bins of the whole input, and its ranks.
 SHARDED_N, SHARDED_K, SHARDED_WORLD = 10_000_000, 256, 2
@@ -245,9 +245,9 @@ SHARDED_N, SHARDED_K, SHARDED_WORLD = 10_000_000, 256, 2
 # (seed 3), so not the bench's table; and the rows of its escalation table.
 CORRELATED = (60_000, 8)
 ESCALATION_N = 100_000
-# The timeline intervals that split a batched scheduler's pair phase.
+# The timeline intervals that split the compacting scheduler's pair phase.
 PAIR_SPANS = ("pair_presort", "pair_upload", "compact_launch",
-              "batched_launch", "pair_metadata")
+              "pair_metadata")
 
 
 def emit(obj) -> None:
@@ -1098,8 +1098,8 @@ def escalation_data(n: int, rng):
     """Four integer columns: a uniform base, a near copy of it, an
     independent uniform column and a near mirror of the base. Each column's
     1-D grid fits the k2 = 64 rung, but the joint of two base-derived
-    columns needs more than 64 bins an axis, so the fixed-chunk scheduler's
-    one chunk re-runs one rung up."""
+    columns needs more than 64 bins an axis, so the compacting scheduler
+    escalates those pairs one rung up."""
     import numpy as np
     x = rng.integers(0, 100_000, n).astype(float)
     return np.stack([x, np.round(x + rng.normal(0, 300, n)),
@@ -1110,15 +1110,13 @@ def escalation_data(n: int, rng):
 def _scheduler_build(data, columns, params, scheduler: str) -> tuple:
     """One build on the card under ``scheduler`` with its K3/K4 launches
     counted; returns the synopsis and its report: ``split_s`` is the pair
-    phase's timeline intervals (``PAIR_SPANS``), ``reruns`` the fixed
-    chunk's launches beyond one a chunk."""
+    phase's timeline intervals (``PAIR_SPANS``)."""
     import dataclasses
 
     import torch
     from repro_torch.core.build import build_pairwise_hist
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    over = {"compact": {}, "batched": {"compact_drain": False},
-            "sequential": {"pair_batched": False}}[scheduler]
+    over = {"compact": {}, "sequential": {"pair_batched": False}}[scheduler]
     reset_launch_counts()
     t = time.perf_counter()
     syn = build_pairwise_hist(data, columns,
@@ -1132,10 +1130,6 @@ def _scheduler_build(data, columns, params, scheduler: str) -> tuple:
         raise AssertionError(f"{scheduler} build ran as {stats['mode']}")
     rep = dict(_pair_report(stats), mode=scheduler, build_s=seconds,
                launches={k: counts[k] for k in PAIR_KERNELS})
-    if scheduler == "batched":
-        chunk = 1 << (int(params.pair_chunk).bit_length() - 1)
-        rep["reruns"] = (len(stats["pair_launches"])
-                         - -(-len(syn.pairs) // chunk))
     return syn, rep
 
 
@@ -1152,13 +1146,14 @@ def _shape_key(name: str, args: tuple) -> tuple:
 
 
 def phase_schedulers(main_out: dict) -> list:
-    """The fixed-chunk and per-pair schedulers on the card, each held to
-    the compacting scheduler's synopsis field by field: on the main table
-    (the main phase's synopsis; the rebuilds start from its compressed
-    table), on a correlated table (``CORRELATED``) and on one whose fixed
-    chunk escalates (``escalation_data``, which must re-run a chunk). The
-    K3/K4 inputs of each new shape that the fixed-chunk builds launch are
-    recorded and held against the plain versions; returns those cases."""
+    """The per-pair loop on the card, held to the compacting scheduler's
+    synopsis field by field: on the main table (the main phase's synopsis;
+    the rebuild starts from its compressed table), on a correlated table
+    (``CORRELATED``) and on one whose pairs escalate
+    (``escalation_data``, whose compacting build must escalate a pair).
+    The K3/K4 inputs of each new shape that the compacting builds of the
+    last two launch are recorded and held against the plain versions;
+    returns those cases."""
     import numpy as np
     from repro_torch.bench.construction import _correlated_data
     from repro_torch.core.types import BuildParams, ColumnInfo
@@ -1181,28 +1176,24 @@ def phase_schedulers(main_out: dict) -> list:
     bad = []
     recorded = {}
     for label, (data, columns, params, ref) in tables.items():
-        builds = []
         if ref is None:
-            ref, rep = _scheduler_build(data, columns, params, "compact")
-            builds.append(rep)
-        else:
-            builds.append(dict(_pair_report(ref.build_stats),
-                               mode="compact", source="main phase"))
-        for scheduler in ("batched", "sequential"):
-            with (recording_hist_inputs(recorded, _shape_key)
-                  if scheduler == "batched" else nullcontext()):
-                syn, rep = _scheduler_build(data, columns, params, scheduler)
-            diffs = synopsis_diffs(ref, syn)
-            rep["mismatched_fields"] = len(diffs)
-            builds.append(rep)
-            if diffs:
-                bad.append((label, scheduler, diffs[:10]))
+            with recording_hist_inputs(recorded, _shape_key):
+                ref, rep = _scheduler_build(data, columns, params, "compact")
             zero = [k for k in PAIR_KERNELS if rep["launches"][k] <= 0]
-            if scheduler == "batched" and zero:
-                bad.append((label, scheduler, f"no launches of {zero}"))
-            if label == "escalation" and scheduler == "batched" and \
-                    rep["reruns"] <= 0:
-                bad.append((label, scheduler, "no chunk re-ran"))
+            if zero:
+                bad.append((label, "compact", f"no launches of {zero}"))
+        else:
+            rep = dict(_pair_report(ref.build_stats), mode="compact",
+                       source="main phase")
+        if label == "escalation" and \
+                rep["compaction"]["escalated_pairs"] <= 0:
+            bad.append((label, "compact", "no pair escalated"))
+        syn, seq = _scheduler_build(data, columns, params, "sequential")
+        diffs = synopsis_diffs(ref, syn)
+        seq["mismatched_fields"] = len(diffs)
+        if diffs:
+            bad.append((label, "sequential", diffs[:10]))
+        builds = [rep, seq]
         out["tables"][label] = {"pairs": len(ref.pairs),
                                 "n_samples": params.n_samples,
                                 "builds": builds}

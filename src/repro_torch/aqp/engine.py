@@ -154,32 +154,20 @@ class AQPFramework:
         self._retained, self._raw_batches, self._expired = table, [], 0
         # GD-native construction: build directly from the compressed store —
         # only the N_s sampled rows are decoded and the bases seed the 1-D
-        # edges (bit-for-bit equal to the raw+seed_edges path).
-        use_ct = self.use_compression and self.params.from_compressed
-        build_input = self.compressed if use_ct else self.preprocessed.data
-        seed_edges = (GreedyGD.seed_edges(self.compressed)
-                      if self.use_compression and not use_ct else None)
+        # edges.
+        build_input = (self.compressed if self.use_compression
+                       else self.preprocessed.data)
         with tl.phase("build"):
             self.synopsis = build_pairwise_hist(
                 build_input, self.preprocessed.columns, self.params,
-                seed_edges=seed_edges, device=self.device)
-        engine = QueryEngine(self.synopsis, fastpath=self.fastpath)
-        # The build's pair-phase telemetry beside the ingest's own spans
-        # (rebuild() runs through here too).
-        stats = self.synopsis.build_stats
+                device=self.device)
+        # The ingest's own spans beside the build's telemetry (rebuild()
+        # runs through here too).
         phase_s = tl.summary()
-        self._publish(engine, {
-            "preprocess_s": phase_s["preprocess"],
-            "compress_s": phase_s.get("gd_compress", 0.0),
-            "build_synopsis_s": phase_s["build"],
-            "build_pairs_s": stats.get("pair_phase_s", 0.0),
-            "build_pair_mode": stats.get("mode", ""),
-            "build_phase_s": dict(stats.get("phase_s", {})),
-            "build_from_compressed": bool(stats.get("from_compressed")),
-            "ingest_timeline": tl.events,
-            "ingest_phase_s": phase_s,
-            "ingest_counts": tl.totals(),
-        })
+        self._publish_build(phase_s["preprocess"],
+                            phase_s.get("gd_compress", 0.0), phase_s["build"],
+                            ingest_timeline=tl.events, ingest_phase_s=phase_s,
+                            ingest_counts=tl.totals())
         return self
 
     def ingest_compressed(self, compressed, columns) -> "AQPFramework":
@@ -194,18 +182,25 @@ class AQPFramework:
         self._retained, self._raw_batches, self._expired = None, [], 0
         self.synopsis = build_pairwise_hist(compressed, columns, self.params,
                                             device=self.device)
-        t1 = time.perf_counter()
-        engine = QueryEngine(self.synopsis, fastpath=self.fastpath)
+        self._publish_build(0.0, 0.0, time.perf_counter() - t0)
+        return self
+
+    def _publish_build(self, preprocess_s: float, compress_s: float,
+                       build_s: float, **extra):
+        """Publish a query engine over the new synopsis with the timings
+        that every ingest path reports (the stage seconds given and the
+        build's pair-phase telemetry), and ``extra`` beside them."""
         stats = self.synopsis.build_stats
-        self._publish(engine, {
-            "preprocess_s": 0.0, "compress_s": 0.0,
-            "build_synopsis_s": t1 - t0,
+        self._publish(QueryEngine(self.synopsis, fastpath=self.fastpath), {
+            "preprocess_s": preprocess_s,
+            "compress_s": compress_s,
+            "build_synopsis_s": build_s,
             "build_pairs_s": stats.get("pair_phase_s", 0.0),
             "build_pair_mode": stats.get("mode", ""),
             "build_phase_s": dict(stats.get("phase_s", {})),
-            "build_from_compressed": True,
+            "build_from_compressed": bool(stats.get("from_compressed")),
+            **extra,
         })
-        return self
 
     def append_rows(self, table: dict):
         """Queue ``table``'s rows (by reference) behind the held ones and

@@ -13,11 +13,9 @@ Four measurements:
      round and one transfer a pair) vs the default compacting scheduler,
      in pairs per second, the synopses required bit-for-bit equal;
   3. the *correlated-pair* table (``correlated_only`` runs it alone, with
-     the GD build): the per-pair loop vs the fixed-chunk scheduler
-     (``compact_drain=False``, whose chunks run until their slowest pair
-     converges) vs the compacting scheduler, with the compaction ledger
-     and the capacity rungs each batched scheduler launched at; all three
-     synopses required bit-for-bit equal;
+     the GD build): the per-pair loop vs the compacting scheduler, with
+     the compaction ledger and the (slots, capacity rung) of each of its
+     launches; the synopses required bit-for-bit equal;
   4. a GreedyGD-compressed table: the build from the ``CompressedTable``
      vs the raw build with base-seeded edges, and the cold-start decode of
      the encoded synopsis.
@@ -73,9 +71,8 @@ def _pair_phase_data(n: int, d: int, rng):
 def _correlated_data(n: int, d: int, rng):
     """Pairwise-dependent workload: half the columns derive from one shared
     base, so every pair among them refines deep while the independent half
-    converges in a round or two — the mix where fixed-chunk refinement
-    lockstep-drags (deep pairs hold their whole chunk) and convergence
-    compaction should not."""
+    converges in a round or two — the mix that convergence compaction's
+    drain and backfill are for."""
     base = np.abs(rng.normal(300, 90, n))
     cols = [np.round(np.abs(rng.normal(100 * (i + 1), 20 + 10 * i, n)))
             for i in range(d // 2)]
@@ -108,11 +105,11 @@ def _assert_pairs_equal(a, b):
 
 
 def _run_correlated(rows: list, out: dict, sizes: dict, rng, dev):
-    """Correlated-pair scenario: per-pair loop vs fixed chunk vs compacting.
+    """Correlated-pair scenario: per-pair loop vs compacting.
 
-    The tracked numbers are the two speedups over the per-pair loop, with
-    the compaction ledger (pair-rounds refined vs slot-rounds its launches
-    could run) and the (slots or chunk size, k2 rung) of every launch.
+    The tracked number is the speedup over the per-pair loop, with the
+    compaction ledger (pair-rounds refined vs slot-rounds its launches
+    could run) and the (slots, k2 rung) of every launch.
     """
     n, d = sizes["correlated"]
     repeats = sizes["repeats"]
@@ -120,36 +117,25 @@ def _run_correlated(rows: list, out: dict, sizes: dict, rng, dev):
     cols = _cols(d)
     n_pairs = d * (d - 1) // 2
     p_loop = BuildParams(n_samples=n, pair_batched=False)
-    p_fixed = dataclasses.replace(p_loop, pair_batched=True,
-                                  compact_drain=False)
-    p_compact = dataclasses.replace(p_loop, pair_batched=True,
-                                    compact_drain=True)
+    p_compact = dataclasses.replace(p_loop, pair_batched=True)
 
     t_loop, _, s_loop = _timed_pair_phase(data, cols, p_loop, repeats, dev)
-    t_fixed, fstats, s_fixed = _timed_pair_phase(data, cols, p_fixed,
-                                                 repeats, dev)
     t_compact, cstats, s_compact = _timed_pair_phase(data, cols, p_compact,
                                                      repeats, dev)
     _assert_pairs_equal(s_loop, s_compact)
-    _assert_pairs_equal(s_loop, s_fixed)
     comp = cstats["compaction"]
     out["correlated"] = {
         "n": n, "d": d, "n_pairs": n_pairs,
         "per_pair_loop_s": t_loop,
-        "fixed_chunk_s": t_fixed,
         "compact_s": t_compact,
-        "speedup_fixed": t_loop / t_fixed,
         "speedup_compact": t_loop / t_compact,
         "pairs_per_s_compact": n_pairs / t_compact,
         "occupancy": (comp["pair_rounds"] / comp["slot_rounds"]
                       if comp["slot_rounds"] else None),
         "compaction": comp,
-        "fixed_launches": [list(x) for x in fstats["pair_launches"]],
         "compact_launches": [list(x) for x in cstats["pair_launches"]],
         "bitforbit_equal": True,
     }
-    emit(rows, "construction/correlated_fixed_chunk", t_fixed * 1e6,
-         f"{t_loop / t_fixed:.2f}x vs loop (lockstep drag)")
     emit(rows, "construction/correlated_compact", t_compact * 1e6,
          f"{t_loop / t_compact:.2f}x vs loop; "
          f"occupancy {out['correlated']['occupancy']:.2f}")
@@ -293,7 +279,7 @@ def _run_pair_phase(rows: list, out: dict, sizes: dict, rng, dev):
         "speedup": speedup,
         "pairs_per_s_loop": n_pairs / t_loop,
         "pairs_per_s_batched": n_pairs / t_batched,
-        "batched_launches": [list(x) for x in bstats["pair_launches"]],
+        "compact_launches": [list(x) for x in bstats["pair_launches"]],
         "bitforbit_equal": True,
     }
     emit(rows, "construction/pair_loop", t_loop * 1e6,

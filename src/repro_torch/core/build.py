@@ -6,8 +6,8 @@ Pipeline (the reference package's, step for step):
   2. all columns at once: one host ``np.sort(axis=0)`` + vectorized
      unique-prefix, then ``refine.refine_1d`` with the columns as a batch
      dimension on the device;
-  3. pair histograms under one of three schedulers (``BuildParams``),
-     bit-for-bit equal to one another:
+  3. pair histograms under one of two schedulers (``BuildParams``),
+     bit-for-bit equal to each other:
        * convergence-compacting (the default; ``build_pairs_compact`` /
          ``refine.refine_2d_compact``): the sample's columns are uploaded
          once, per-column ranks are shared across pairs
@@ -15,18 +15,12 @@ Pipeline (the reference package's, step for step):
          presorted on the device (``refine.presort_pairs``), ``pair_chunk``
          slots refine it with drain/backfill on the host, and
          capacity-guard escalation re-queues only the capped pairs one
-         rung up the k2 ladder;
-       * fixed chunk (``compact_drain=False``; ``build_pairs_batched`` /
-         ``refine.build_pairs_device``): chunks of ``pair_chunk`` pairs,
-         presorted on the device as above, refine until their slowest pair
-         converges, and a chunk whose guard binds re-runs whole one rung
-         up;
+         rung up the k2 ladder. It counts through
+         ``repro_torch.kernels.hist2d`` and ``repro_torch.kernels.subbin``
+         — CUDA kernels when the build runs on the card;
        * per pair (``pair_batched=False``; ``build_pairs_sequential`` /
          ``refine.refine_2d``): the reference's oracle and benchmark
-         baseline, one pair and one host check a round at a time.
-     The batched two count through ``repro_torch.kernels.hist2d`` and
-     ``repro_torch.kernels.subbin`` — CUDA kernels when the build runs on
-     the card;
+         baseline, one pair and one host check a round at a time;
   4. the 1-D grids are refined to the union of their pairs' edges and the
      fold maps are computed (host NumPy + one batched metadata call).
 
@@ -142,8 +136,8 @@ def build_pairs_sequential(sample: np.ndarray, hists: list, params, crit2,
     on one pair after another, at capacity ``k2_cap``, with one host check
     a round and one transfer a pair.
 
-    The reference's bit-for-bit oracle for the batched schedulers and the
-    benchmarks' baseline. Returns {(a, b): PairHist} without fold maps.
+    The compacting scheduler's bit-for-bit oracle and the benchmarks'
+    baseline. Returns {(a, b): PairHist} without fold maps.
     """
     K2 = params.k2_cap
     cols = to_device(np.ascontiguousarray(np.nan_to_num(sample, nan=0.0).T),
@@ -192,8 +186,9 @@ def _presort_pairs_host(x, y, valid, rx=None, ry=None):
     same permutation as the two-key float lexsort.
 
     The host oracle of ``refine.presort_pairs``, which the build runs on
-    the device (``_presort_group``); tests use it to make the schedulers'
-    presorted inputs and to hold the device presort to, bit for bit.
+    the device (``_presort_group``); tests use it to make the compacting
+    scheduler's presorted inputs and to hold the device presort to, bit
+    for bit.
     """
     n_pairs, n = x.shape
     xo1 = np.empty_like(x)
@@ -226,7 +221,7 @@ def _presort_pairs_host(x, y, valid, rx=None, ry=None):
 
 
 def _upload_sample(sample: np.ndarray, device, tl: BuildTimeline):
-    """The batched schedulers' presort inputs, once a build: the sample's
+    """The compacting scheduler's presort inputs, once a build: the sample's
     columns (d, N) f64 with NaN as 0.0 and their (d, N) NaN mask in one
     ``pair_upload`` span, then the column ranks on the device in a
     ``pair_presort`` span of no pairs (``presort_ranks``)."""
@@ -241,23 +236,18 @@ def _upload_sample(sample: np.ndarray, device, tl: BuildTimeline):
     return cols, nanm, ranks
 
 
-def _presort_group(part, size: int, cols, nanm, ranks, device,
+def _presort_group(part, cols, nanm, ranks, device,
                    tl: BuildTimeline) -> tuple:
     """One group's presort on the device, ``_presort_pairs_host``'s eight
-    (size, N) arrays for the pairs ``part`` (lanes past them are empty:
-    zeros, no valid rows). ``presort_gather`` uploads the pairs' column
-    indices and gathers x, y, their ranks and validity; ``presort_sort``
-    sorts the composite rank keys (``refine.presort_pairs``)."""
-    pad = size - len(part)
+    (len(part), N) arrays for the pairs ``part``. ``presort_gather``
+    uploads the pairs' column indices and gathers x, y, their ranks and
+    validity; ``presort_sort`` sorts the composite rank keys
+    (``refine.presort_pairs``)."""
     with tl.phase("presort_gather", wait=device):
         a = to_device([ab[0] for ab in part], device, torch.int64)
         b = to_device([ab[1] for ab in part], device, torch.int64)
         x, y, rx, ry = cols[a], cols[b], ranks[a], ranks[b]
         valid = ~(nanm[a] | nanm[b])
-        if pad:
-            x, y, rx, ry, valid = (
-                torch.nn.functional.pad(t, (0, 0, 0, pad))
-                for t in (x, y, rx, ry, valid))
     with tl.phase("presort_sort", wait=device):
         tl.count("presort_device_pairs", len(part))
         return refine.presort_pairs(x, y, valid, rx, ry)
@@ -269,91 +259,14 @@ def _pow2_floor(n: int) -> int:
     return 1 << (max(1, n).bit_length() - 1)
 
 
-def _pow2_ceil(n: int) -> int:
-    """Smallest power of two >= n: the fixed-chunk launch-size rule (a
-    tail chunk pads up with dummy lanes, as in the reference)."""
-    return 1 << max(0, n - 1).bit_length()
-
-
-def _cap_ladder(need: int, k2_cap: int, k2_start: int) -> list[int]:
-    """Doubling capacity ladder: smallest rung fitting ``need`` up to k2_cap."""
-    c = max(2, k2_start)
-    while c < need:
-        c *= 2
-    c = min(c, k2_cap)
+def _cap_ladder(k2_start: int, k2_cap: int) -> list[int]:
+    """Doubling capacity ladder k2_start, 2*k2_start, ..., k2_cap."""
+    c = min(max(2, k2_start), k2_cap)
     ladder = [c]
     while c < k2_cap:
         c = min(c * 2, k2_cap)
         ladder.append(c)
     return ladder
-
-
-def build_pairs_batched(sample: np.ndarray, hists: list, params, crit2,
-                        m_pts: int, device, stats: dict | None = None,
-                        timeline: BuildTimeline | None = None) -> dict:
-    """Fixed-chunk 2-D construction: chunked (P, N) launches, one grouped
-    device->host transfer per chunk. Returns {(a, b): PairHist} without
-    fold maps; records each launch's (size, capacity) into
-    ``stats["pair_launches"]`` and, when a ``timeline`` is passed, one
-    ``batched_launch`` span per launch (its metadata included), the
-    ``pair_upload`` and column ranks of ``_upload_sample`` and a
-    ``pair_presort`` span per chunk (``_presort_group``).
-
-    Each chunk refines at the smallest capacity rung that fits its initial
-    grids; if any pair's capacity guard binds, the whole chunk re-runs one
-    rung up (results are capacity-independent while the guard is slack).
-    The host reads one flag a round (``refine.refine_2d_batch``) and the
-    capped flags once a launch.
-    """
-    tl = timeline or _NO_TIMELINE
-    K2 = params.k2_cap
-    d = sample.shape[1]
-    keys = _pair_keys(d)
-    cols, nanm, ranks = _upload_sample(sample, device, tl)
-    # The chunk cap rounds DOWN to a power of two (the memory bound); the
-    # tail chunk pads up to the next power of two >= its size.
-    chunk = _pow2_floor(int(params.pair_chunk))
-    launches = []
-    raw_pairs = {}
-    for start in range(0, len(keys), chunk):
-        part = keys[start:start + chunk]
-        size = _pow2_ceil(len(part))
-        kx0 = np.ones(size, np.int64)
-        ky0 = np.ones(size, np.int64)
-        for p, (a, b) in enumerate(part):
-            kx0[p] = min(int(hists[a].k), K2)
-            ky0[p] = min(int(hists[b].k), K2)
-        with tl.phase("pair_presort", pairs=len(part)):
-            pres = _presort_group(part, size, cols, nanm, ranks, device, tl)
-        need = int(max(kx0.max(), ky0.max()))
-        for cap in _cap_ladder(need, K2, params.k2_start):
-            with tl.phase("batched_launch", cap=cap, size=size,
-                          pairs=len(part)):
-                ex0 = np.full((size, cap + 1), np.inf, np.float64)
-                ey0 = np.full((size, cap + 1), np.inf, np.float64)
-                ex0[:, :2] = 0.0
-                ey0[:, :2] = 0.0  # dummy lanes: one empty bin, no valid rows
-                for p, (a, b) in enumerate(part):
-                    ex0[p] = _pad_edges(hists[a].edges, cap)
-                    ey0[p] = _pad_edges(hists[b].edges, cap)
-                out = refine.build_pairs_device(
-                    *pres, to_device(ex0, device), to_device(ey0, device),
-                    to_device(kx0, device), to_device(ky0, device),
-                    float(m_pts), crit2, k2=cap, s_max=params.s2_max,
-                    max_rounds=params.max_rounds_2d)
-                # the chunk's transfer
-                host = [to_host(v).numpy() for v in out]
-                launches.append((size, cap))
-            capped = host[4]
-            if cap >= K2 or not capped[: len(part)].any():
-                break
-        del pres  # before the next chunk's presort is made
-        fields = host[:4] + host[5:]    # drop the capped flag
-        for p, (a, b) in enumerate(part):
-            raw_pairs[(a, b)] = _trim_pair(*(v[p] for v in fields))
-    if stats is not None:
-        stats["pair_launches"] = launches
-    return raw_pairs
 
 
 # Pairs uploaded to the device per group, in units of the slot count: the
@@ -407,9 +320,9 @@ def build_pairs_compact(sample: np.ndarray, hists: list, params, crit2,
         ky0g = np.array([min(int(hists[b].k), K2) for _, b in part],
                         np.int64)
         with tl.phase("pair_presort", pairs=g):
-            pres = _presort_group(part, g, cols, nanm, ranks, device, tl)
+            pres = _presort_group(part, cols, nanm, ranks, device, tl)
 
-        ladder = _cap_ladder(2, K2, params.k2_start)
+        ladder = _cap_ladder(params.k2_start, K2)
         queue: dict[int, list] = {}
         for gid in range(g):
             need = max(int(kx0g[gid]), int(ky0g[gid]))
@@ -515,14 +428,14 @@ def build_pairwise_hist(
 
     ``data`` is in the *pre-processed* (GD) domain: non-negative integers as
     f64, NaN for missing — or a ``CompressedTable``, in which case only the
-    N_s sampled rows are decoded and, with ``params.seed_from_bases``, the
+    N_s sampled rows are decoded and, unless ``seed_edges`` are given, the
     1-D edges are seeded from the deduplicated bases (§3). ``seed_edges``
     (optional) are per-column initial edge candidates. ``n_rows_full`` is N
     of the complete dataset when ``data`` is itself a sample.
 
-    ``params.pair_batched`` and ``params.compact_drain`` pick the pair
-    scheduler (``build_stats["mode"]``: ``"compact"``, ``"batched"`` or
-    ``"sequential"``); all three give the same synopsis.
+    ``params.pair_batched`` picks the pair scheduler
+    (``build_stats["mode"]``: ``"compact"`` or ``"sequential"``); both give
+    the same synopsis.
     ``device=None`` builds on the CUDA device (and raises without one);
     ``device="cpu"`` runs the same code with the kernels' plain versions.
     The input ``columns`` list is left untouched; the returned synopsis
@@ -535,7 +448,7 @@ def build_pairwise_hist(
     if ct is not None:
         n_input = ct.n_rows
         d = ct.d
-        if seed_edges is None and params.seed_from_bases:
+        if seed_edges is None:
             with timeline.phase("seed_edges", d=d):
                 seed_edges = GreedyGD.seed_edges(ct)
     else:
@@ -604,14 +517,9 @@ def build_pairwise_hist(
     # --- 3. pair histograms (batched across pairs) -------------------------
     build_stats: dict = {}
     with timeline.phase("pair_phase") as pair_span:
-        if params.pair_batched and params.compact_drain:
+        if params.pair_batched:
             mode = "compact"
             raw_pairs = build_pairs_compact(sample, hists, params, crit2,
-                                            m_pts, dev, stats=build_stats,
-                                            timeline=timeline)
-        elif params.pair_batched:
-            mode = "batched"
-            raw_pairs = build_pairs_batched(sample, hists, params, crit2,
                                             m_pts, dev, stats=build_stats,
                                             timeline=timeline)
         else:

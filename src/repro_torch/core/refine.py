@@ -15,23 +15,21 @@ in 1-D, pairs in 2-D). Every per-bin value is computed by the same
 floating-point operations in the same order as the reference, and all
 counts are exact integers, so the results are bit-for-bit the reference's.
 
-2-D refinement has three schedulers, all bit-for-bit equal:
+2-D refinement has two schedulers, bit-for-bit equal:
 
   * ``refine_2d`` / ``pair_metadata`` — one pair at a time, its segment
     sums as plain torch scatters (``index_add_``, ``scatter_reduce``) and
     one host check of the split count a round: the reference's oracle and
     the benchmarks' per-pair loop;
-  * ``refine_2d_batch`` (with ``build_pairs_device``) — fixed chunk: P
-    presorted pairs (``presort_pairs``) refine together until the slowest
-    converges;
-  * ``refine_2d_compact`` — convergence-compacting: a slot set over a
-    pending queue, draining and backfilling on the host.
+  * ``refine_2d_compact`` / ``pair_metadata_batch`` —
+    convergence-compacting: a slot set of presorted pairs
+    (``presort_pairs``) over a pending queue, draining and backfilling on
+    the host. Its rounds (``_round_2d_batch``) count per-cell unique
+    values through ``repro_torch.kernels.hist2d.batched_hist2d`` and
+    chi-squared sub-bins through ``repro_torch.kernels.subbin`` (via
+    ``chi2.subbin_counts``) — hand-written CUDA kernels for CUDA tensors.
 
-The batched two share ``_round_2d_batch``, whose per-cell unique counts go
-through ``repro_torch.kernels.hist2d.batched_hist2d`` and chi-squared
-sub-bin counts through ``repro_torch.kernels.subbin`` (via
-``chi2.subbin_counts``) — hand-written CUDA kernels for CUDA tensors. All
-three share the split selection (``_split_2d_batch``) and the chi-squared
+Both share the split selection (``_split_2d_batch``) and the chi-squared
 tail (``_chi2_from_hbar_b``).
 """
 from __future__ import annotations
@@ -423,7 +421,7 @@ def column_ranks(cols):
 
 
 def presort_pairs(x, y, valid, rx, ry):
-    """Per-pair presorts on the device, done once per chunk or group.
+    """Per-pair presorts on the device, done once per group.
 
     x/y/valid: (P, N); rx/ry: their rows of ``column_ranks``. Invalid rows
     sort to the tail. Returns the points of every pair in (x, y) order and
@@ -566,50 +564,6 @@ def _split_2d_batch(h_cell, ux_cell, uy_cell, stat_x, crit_x, stat_y, crit_y,
     ey = torch.sort(torch.cat([ey, torch.where(ok_y, zy, _full_like(zy, _INF))],
                               dim=1), dim=1).values[:, : k2 + 1].contiguous()
     return ex, ey, kx + nx, ky + ny, nx + ny, capped_round
-
-
-def refine_2d_batch(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
-                    ex0, ey0, kx0, ky0, min_points, crit_table, *,
-                    k2: int, s_max: int = 32, max_rounds: int = 16):
-    """Fixed-chunk refinement: P pair histograms refine together.
-
-    Inputs are ``presort_pairs`` outputs plus per-pair initial edges
-    ``ex0``/``ey0`` (P, k2+1) and valid-bin counts ``kx0``/``ky0`` (P,).
-    Rounds run until no pair of the chunk splits (at most ``max_rounds``);
-    the host reads one flag a round. A pair that stopped splitting is at a
-    fixed point, so the rounds it sits through while slower pairs converge
-    change nothing: each pair's result is ``refine_2d``'s on that pair.
-    Returns (ex, ey, kx, ky, capped); ``capped[p]`` is True iff pair p's
-    capacity guard dropped a wanted split in any round (then the result
-    depends on ``k2``; otherwise it does not).
-    """
-    ex, ey = ex0, ey0
-    kx, ky = kx0.to(torch.int64), ky0.to(torch.int64)
-    capped = torch.zeros(ex0.shape[0], dtype=torch.bool, device=ex0.device)
-    for _ in range(max_rounds):
-        ex, ey, kx, ky, n_split, capped_r = _round_2d_batch(
-            xo1, yo1, vo1, new1, xo2, yo2, vo2, new2, ex, ey, kx, ky,
-            min_points, crit_table, k2=k2, s_max=s_max)
-        capped = capped | capped_r
-        if not bool(to_host((n_split > 0).any())):
-            break
-    return ex, ey, kx, ky, capped
-
-
-def build_pairs_device(xo1, yo1, vo1, new1, xo2, yo2, vo2, new2,
-                       ex0, ey0, kx0, ky0, min_points, crit_table, *,
-                       k2: int, s_max: int = 32, max_rounds: int = 16):
-    """``refine_2d_batch`` then ``pair_metadata_batch`` on one chunk.
-
-    Returns (ex, ey, kx, ky, capped, H, hx, ux, vminx, vmaxx, hy, uy,
-    vminy, vmaxy), every tensor with the leading pair axis, on the device.
-    """
-    pres = (xo1, yo1, vo1, new1, xo2, yo2, vo2, new2)
-    ex, ey, kx, ky, capped = refine_2d_batch(
-        *pres, ex0, ey0, kx0, ky0, min_points, crit_table, k2=k2,
-        s_max=s_max, max_rounds=max_rounds)
-    meta = pair_metadata_batch(*pres, ex, ey, kx, ky, k2=k2)
-    return (ex, ey, kx, ky, capped) + meta
 
 
 def refine_2d_compact(pres, ex0, ey0, kx0, ky0, min_points, crit_table, *,

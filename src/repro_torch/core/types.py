@@ -40,38 +40,19 @@ class BuildParams:
     s2_max: int = 32                  # max sub-bins, 2-D tests
     max_rounds_1d: int = 64           # refinement rounds (== max recursion depth)
     max_rounds_2d: int = 16
-    # Kept for parity with the reference's parameters and ignored here: the
-    # device of the build tensors picks the CUDA kernels or the plain code.
-    use_pallas: bool = False
     # Pair-batched construction (the 2-D hot path). ``pair_chunk`` bounds how
     # many pairs refine per round (memory ~ pair_chunk * k2_cap^2 * s2_max);
     # it rounds DOWN to a power of two so the memory bound is honoured.
-    pair_batched: bool = True         # batched 2-D path vs legacy per-pair loop
-    pair_chunk: int = 8               # max pairs per batched launch (pow-2)
-    # Adaptive 2-D capacity: chunks refine at the smallest rung of the
-    # doubling ladder k2_start, 2*k2_start, ..., k2_cap that fits their
+    # pair_batched=False selects the per-pair loop, the compacting
+    # scheduler's bit-for-bit oracle; both give the same synopsis.
+    pair_batched: bool = True         # compacting scheduler vs per-pair loop
+    pair_chunk: int = 8               # compacting slots (pow-2)
+    # Adaptive 2-D capacity: each pair refines at the smallest rung of the
+    # doubling ladder k2_start, 2*k2_start, ..., k2_cap that fits its
     # initial grids, escalating only when the capacity guard binds (the
     # result is capacity-independent otherwise). Real pair grids are tens of
     # bins, so the k2_cap^2 * s2_max chi-squared workspace shrinks ~16x.
     k2_start: int = 64                # first rung of the capacity ladder
-    # Convergence-compacting refinement (build_pairs_compact): pair_chunk
-    # slots refine a device-resident pending queue, draining each pair the
-    # round it converges and backfilling its slot, so deep (correlated)
-    # pairs never lockstep-drag shallow ones. False selects the fixed-chunk
-    # scheduler (build_pairs_batched), whose chunks run until their slowest
-    # pair converges; both give the same synopsis.
-    compact_drain: bool = True        # drain/backfill vs fixed-chunk lockstep
-    # The reference's re-bucketing threshold for a compacted launch's tail.
-    # Kept for parity and ignored: the port's host-driven scheduler shrinks
-    # its active set every round instead (results are schedule-independent).
-    occupancy_min: float = 0.25
-    # GD-native construction (knobs documented in docs/compression.md).
-    # When ``build_pairwise_hist`` receives a CompressedTable it decodes only
-    # the N_s sampled rows (never the full matrix); seed_from_bases seeds the
-    # 1-D edges from the deduplicated bases. from_compressed lets the engine
-    # route construction through the stored CompressedTable.
-    from_compressed: bool = True      # engine builds from CompressedTable
-    seed_from_bases: bool = True      # 1-D edges seeded from GD bases
 
     @property
     def min_points(self) -> int:
@@ -244,7 +225,12 @@ class PairwiseHist:
 
 
 def params_from_any(params) -> BuildParams:
-    """``BuildParams`` from any object carrying the same field names."""
+    """``BuildParams`` from any object carrying the same field names.
+
+    Names the port does not have are dropped: five of the reference's
+    fields select nothing here (its fixed-chunk scheduler, its re-bucketing
+    threshold, its Pallas switch and its two compressed-input switches).
+    """
     return BuildParams(**{f.name: getattr(params, f.name)
                           for f in dataclasses.fields(BuildParams)
                           if hasattr(params, f.name)})

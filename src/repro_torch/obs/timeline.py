@@ -7,11 +7,11 @@ order the spans open. ``build_pairwise_hist`` opens one ``phase(...)`` per
 pipeline stage (seed edges, sample, 1-D refine, pair phase, union regrid,
 folds) and the stages open theirs inside: the sample's decode
 (``decompress_rows``) and critical-value table (``crit_table``); the
-batched schedulers' upload of the sample's columns (``pair_upload``),
-their device presort (``pair_presort``, split into ``presort_ranks``,
-``presort_gather`` and ``presort_sort``), one ``compact_launch`` /
-``batched_launch`` per launch and the compacting scheduler's metadata
-(``pair_metadata``), with ``rung_escalation`` markers.
+compacting scheduler's upload of the sample's columns (``pair_upload``),
+its device presort (``pair_presort``, split into ``presort_ranks``,
+``presort_gather`` and ``presort_sort``), one ``compact_launch`` per
+launch and its metadata (``pair_metadata``), with ``rung_escalation``
+markers.
 
 Events are plain dicts (JSON-ready, survive a trip through
 ``build_stats``): ``{"name", "t0", "t1", "kind": "phase"|"event",

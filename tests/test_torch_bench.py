@@ -156,7 +156,6 @@ ROWS = {
     "construction": [
         "construction/sequential_alg1", "construction/levelsync",
         "construction/pair_loop", "construction/pair_batched",
-        "construction/correlated_fixed_chunk",
         "construction/correlated_compact", "construction/gd_compression",
         "construction/gd_build", "construction/gd_cold_start"],
     "storage": ["storage/power/encoded", "storage/power/vs_eq12_bound",
@@ -200,9 +199,9 @@ def test_construction_suite_schedulers_agree(monkeypatch, tmp_path):
     assert saved["pair_phase"]["bitforbit_equal"] is True
     cor = saved["correlated"]
     assert cor["bitforbit_equal"] is True and cor["n_pairs"] == 6
-    assert cor["per_pair_loop_s"] > 0 and cor["fixed_chunk_s"] > 0
+    assert cor["per_pair_loop_s"] > 0 and cor["compact_s"] > 0
     assert 0 < cor["occupancy"] <= 1
-    assert cor["fixed_launches"] and cor["compact_launches"]
+    assert cor["compact_launches"]
     assert saved["gd"]["rows_decoded"] == 1500
 
 

@@ -5,7 +5,7 @@ the CPU, through the kernels' plain versions) must produce the reference's
 synopsis field by field with ``array_equal`` — edges, counts, unique
 counts, extrema, centre bounds and fold maps — on the mixes of
 ``tests/test_build_compact.py`` and on ``CompressedTable`` input, under
-each of the three pair schedulers (compacting, fixed chunk, per pair).
+each of the two pair schedulers (compacting, per pair).
 """
 import dataclasses
 
@@ -75,23 +75,24 @@ def mixed():
     return _mixed_table()
 
 
-# The three pair schedulers, as ``BuildParams`` overrides, and the
+# The two pair schedulers, as ``BuildParams`` overrides, and the
 # ``build_stats["mode"]`` each reports.
-SCHEDULERS = {"compact": {}, "batched": dict(compact_drain=False),
-              "sequential": dict(pair_batched=False)}
+SCHEDULERS = {"compact": {}, "sequential": dict(pair_batched=False)}
 
 
 @pytest.mark.parametrize("scheduler", list(SCHEDULERS))
 @pytest.mark.parametrize("params_kw", [
     dict(k2_cap=64, s2_max=16, pair_chunk=4),          # test_build_compact
     dict(k2_cap=64, s2_max=16, pair_chunk=1),          # one slot
+    dict(k2_cap=64, s2_max=16, pair_chunk=3),          # not a power of two
+    dict(k2_cap=64, s2_max=16, pair_chunk=16),         # more slots than pairs
     dict(k2_cap=8, s2_max=16, pair_chunk=4),           # K2-capped guard
     dict(k2_cap=128, s2_max=16, pair_chunk=4, k2_start=4),  # ladder escalation
     # F1: the checked-in crit tables at the other alphas the repo uses.
     dict(k2_cap=64, s2_max=16, pair_chunk=4, alpha=0.01),
     dict(k2_cap=64, s2_max=16, pair_chunk=4, alpha=0.0001),
-], ids=["compact", "one_slot", "k2_capped", "escalation", "alpha_0.01",
-        "alpha_0.0001"])
+], ids=["compact", "one_slot", "slots_3", "slots_16", "k2_capped",
+        "escalation", "alpha_0.01", "alpha_0.0001"])
 def test_build_bit_identical_to_reference(mixed, params_kw, scheduler):
     params_kw = dict(params_kw, n_samples=mixed.shape[0],
                      **SCHEDULERS[scheduler])
@@ -105,8 +106,6 @@ def test_build_bit_identical_to_reference(mixed, params_kw, scheduler):
     if params_kw["k2_cap"] == 8:
         assert all(int(p.kx) <= 8 and int(p.ky) <= 8
                    for p in port.pairs.values())
-    if scheduler == "batched":
-        assert stats["pair_launches"] == ref.build_stats["pair_launches"]
     if params_kw.get("k2_start") == 4 and scheduler == "compact":
         comp = stats["compaction"]
         assert 0 < comp["escalated_pairs"] < len(port.pairs)
@@ -205,7 +204,20 @@ def test_params_conversion_keeps_every_field():
     from repro.core.types import BuildParams as RefParams
     from repro_torch.core.types import params_from_any
     ref = RefParams(n_samples=123, k2_cap=32, occupancy_min=0.5)
-    assert dataclasses.asdict(params_from_any(ref)) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(params_from_any(ref)) == {
+        f.name: getattr(ref, f.name)
+        for f in dataclasses.fields(BuildParams)}
+
+
+@pytest.mark.parametrize("name, value", [
+    ("use_pallas", True), ("compact_drain", False), ("occupancy_min", 0.5),
+    ("from_compressed", False), ("seed_from_bases", False)])
+def test_removed_build_options_are_rejected(name, value):
+    """The reference's options that select nothing in the port are not
+    fields: a caller still passing one fails instead of running the
+    compacting scheduler unasked."""
+    with pytest.raises(TypeError, match=name):
+        BuildParams(**{name: value})
 
 
 def _random_table(seed):
@@ -222,7 +234,7 @@ def _random_table(seed):
 
 
 @pytest.mark.parametrize("scheduler", list(SCHEDULERS))
-@pytest.mark.parametrize("seed", [1, 3, 6, 10])
+@pytest.mark.parametrize("seed", [1, 3, 4, 6, 8, 10])
 def test_random_tables_bit_identical(seed, scheduler):
     """Random mixes whose weighted-centre bounds and sub-bin edges depend
     on the reference's fused multiply-adds (seeds that differed in the last

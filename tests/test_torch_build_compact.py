@@ -4,10 +4,11 @@ A re-pointed copy of ``tests/test_build_compact.py`` on the CPU
 (``device="cpu"``): the compacted path (``refine.refine_2d_compact`` driven
 by ``build.build_pairs_compact`` — host drain/backfill, shared per-column
 presorts, per-pair capacity rungs) must be *bit-for-bit* equal to the
-per-pair loop (``build.build_pairs_sequential``) on every workload mix,
-and so must the fixed-chunk path. Covers correlated, independent,
-constant, NaN-heavy and K2-capped mixes plus the schedule invariants
-(every pair drains once, deterministic outputs, exact round ledger).
+per-pair loop (``build.build_pairs_sequential``) on every workload mix.
+Covers correlated, independent, constant, NaN-heavy and K2-capped mixes
+plus the schedule invariants (every pair drains once, deterministic
+outputs, exact round ledger), the device presort against its host
+oracles and the column prep.
 """
 import dataclasses
 
@@ -77,49 +78,24 @@ def seq_mixed(mixed):
 
 def test_compact_equals_sequential_bitforbit(mixed, seq_mixed):
     params = BuildParams(n_samples=mixed.shape[0], k2_cap=64, s2_max=16,
-                         pair_batched=True, compact_drain=True, pair_chunk=4)
+                         pair_batched=True, pair_chunk=4)
     compact = _build(mixed, params)
     assert compact.build_stats["mode"] == "compact"
     _assert_same_synopsis(seq_mixed, compact)
 
 
-def test_slot_count_invariance(mixed, seq_mixed):
+@pytest.mark.parametrize("chunk", [1, 2, 3, 8, 16])
+def test_slot_count_invariance(mixed, seq_mixed, chunk):
     """Slot count (and with it queue order / drain timing) never changes
-    bits — the schedule-independence core of the compaction claim."""
-    for chunk in (1, 2, 8):
-        params = BuildParams(n_samples=mixed.shape[0], k2_cap=64, s2_max=16,
-                             pair_batched=True, pair_chunk=chunk)
-        compact = _build(mixed, params)
-        _assert_same_synopsis(seq_mixed, compact)
-
-
-def test_occupancy_rebucket_invariance(mixed, seq_mixed):
-    """``occupancy_min`` never changes bits.
-
-    The reference's compacted launch exits early below ``occupancy_min``
-    and re-buckets its unconverged pairs into a smaller relaunch; its copy
-    of this test also asserts ``relaunches > 0`` at 1.0. The port's
-    host-driven scheduler shrinks its active set every round instead and
-    never re-buckets, so it keeps the parameter for parity, ignores it and
-    has no relaunch to count: only the bit-equality over 0.5 and 1.0 is
-    asserted here.
-    """
-    for occ in (0.5, 1.0):
-        params = BuildParams(n_samples=mixed.shape[0], k2_cap=64, s2_max=16,
-                             pair_batched=True, pair_chunk=4,
-                             occupancy_min=occ)
-        compact = _build(mixed, params)
-        _assert_same_synopsis(seq_mixed, compact)
-
-
-def test_fixed_chunk_path_still_equal(mixed, seq_mixed):
-    """compact_drain=False keeps the fixed-chunk scheduler (benchmark
-    baseline / escape hatch) — and it must still match the oracle."""
+    bits — the schedule-independence core of the compaction claim; 3 is
+    not a power of two (it rounds down to 2 slots) and 16 slots outnumber
+    the 10 pairs. Every launch runs at most the rounded-down slot count."""
     params = BuildParams(n_samples=mixed.shape[0], k2_cap=64, s2_max=16,
-                         pair_batched=True, compact_drain=False, pair_chunk=4)
-    fixed = _build(mixed, params)
-    assert fixed.build_stats["mode"] == "batched"
-    _assert_same_synopsis(seq_mixed, fixed)
+                         pair_batched=True, pair_chunk=chunk)
+    compact = _build(mixed, params)
+    _assert_same_synopsis(seq_mixed, compact)
+    slots = {n for n, _cap in compact.build_stats["pair_launches"]}
+    assert max(slots) <= 1 << (chunk.bit_length() - 1)
 
 
 def test_independent_columns(seq_mixed):
@@ -130,13 +106,14 @@ def test_independent_columns(seq_mixed):
     _assert_same_synopsis(_build(data, p_seq), _build(data, p_cmp))
 
 
-def test_k2_capacity_guard(mixed):
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_k2_capacity_guard(mixed, chunk):
     """At a tiny k2_cap the guard binds; the final rung must NOT early-drain
     capped pairs (their capped result is the real one) and must reproduce
     the sequential capped bins."""
     p_seq = BuildParams(n_samples=mixed.shape[0], k2_cap=8, s2_max=16,
                         pair_batched=False)
-    p_cmp = dataclasses.replace(p_seq, pair_batched=True, pair_chunk=4)
+    p_cmp = dataclasses.replace(p_seq, pair_batched=True, pair_chunk=chunk)
     seq = _build(mixed, p_seq)
     cmp_ = _build(mixed, p_cmp)
     _assert_same_synopsis(seq, cmp_)
@@ -144,13 +121,14 @@ def test_k2_capacity_guard(mixed):
         assert int(pr.kx) <= 8 and int(pr.ky) <= 8
 
 
-def test_capacity_ladder_escalation_per_pair(mixed):
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_capacity_ladder_escalation_per_pair(mixed, chunk):
     """A tiny first rung forces guards to bind; only the capped pairs
     re-queue one rung up (per-pair escalation) and the result still matches
     the sequential loop at full capacity."""
     p_seq = BuildParams(n_samples=mixed.shape[0], k2_cap=128, s2_max=16,
                         pair_batched=False)
-    p_esc = dataclasses.replace(p_seq, pair_batched=True, pair_chunk=4,
+    p_esc = dataclasses.replace(p_seq, pair_batched=True, pair_chunk=chunk,
                                 k2_start=4)
     seq = _build(mixed, p_seq)
     esc = _build(mixed, p_esc)
@@ -248,7 +226,8 @@ def test_refine_2d_compact_direct_invariants():
         assert okx[p] == kx and oky[p] == ky
 
 
-def test_all_nan_pair_column():
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_all_nan_pair_column(chunk):
     """A column that is NULL on every row yields empty pair histograms
     through the compacted path too."""
     rng = np.random.default_rng(0)
@@ -258,11 +237,68 @@ def test_all_nan_pair_column():
                      np.abs(rng.normal(50, 10, n)).round()], 1)
     p_seq = BuildParams(n_samples=n, k2_cap=32, s2_max=16,
                         pair_batched=False)
-    p_cmp = dataclasses.replace(p_seq, pair_batched=True)
+    p_cmp = dataclasses.replace(p_seq, pair_batched=True, pair_chunk=chunk)
     seq = _build(data, p_seq)
     cmp_ = _build(data, p_cmp)
     _assert_same_synopsis(seq, cmp_)
+    assert cmp_.columns[1].n_null == n
     assert float(cmp_.pairs[(0, 1)].H.sum()) == 0.0
+
+
+def test_build_does_not_mutate_caller_columns(mixed):
+    cols = _cols(mixed.shape[1])
+    params = BuildParams(n_samples=mixed.shape[0], k2_cap=32, s2_max=16)
+    syn = build_pairwise_hist(mixed, cols, params, device="cpu")
+    assert all(c.n_null == 0 for c in cols), \
+        "build_pairwise_hist mutated the caller's ColumnInfo list"
+    assert syn.columns is not cols
+    assert syn.columns[3].n_null > 0          # NaN column counted on the copy
+    assert all(a is not b for a, b in zip(cols, syn.columns))
+
+
+def test_device_presort_matches_float_lexsort():
+    """The device presort (one stable torch sort of the rank key per
+    order) and the host's float np.lexsort produce identical layouts."""
+    from repro_torch.core.refine import column_ranks, presort_pairs
+    rng = np.random.default_rng(2)
+    p, n = 3, 400
+    x = rng.integers(0, 30, (p, n)).astype(float)   # many ties
+    y = rng.integers(0, 30, (p, n)).astype(float)
+    valid = rng.random((p, n)) < 0.9
+    host = _presort_pairs_host(x, y, valid)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    dev = presort_pairs(tx, ty, torch.from_numpy(valid), column_ranks(tx),
+                        column_ranks(ty))
+    for name, h, d in zip("xo1 yo1 vo1 new1 xo2 yo2 vo2 new2".split(),
+                          host, dev):
+        assert d.dtype == torch.from_numpy(h).dtype, name
+        np.testing.assert_array_equal(h, d.numpy(), err_msg=name)
+
+
+def test_prep_columns_matches_per_column_reference():
+    """Vectorized all-column prep == the straightforward per-column loop."""
+    from repro_torch.core.build import _prep_columns
+    rng = np.random.default_rng(5)
+    n, d = 500, 4
+    sample = rng.normal(0, 10, (n, d)).round()
+    sample[rng.random((n, d)) < 0.1] = np.nan
+    sample[:, 2] = 3.0                         # constant column
+    xs_all, up_all, nv, vmin, vmax = _prep_columns(sample)
+    for i in range(d):
+        x = sample[:, i].copy()
+        nan = np.isnan(x)
+        x[nan] = np.inf
+        xs = np.sort(x)
+        n_valid = int(x.size - nan.sum())
+        new = np.empty(x.size, bool)
+        new[0] = True
+        new[1:] = xs[1:] != xs[:-1]
+        up = np.concatenate([[0], np.cumsum(new)]).astype(np.int64)
+        np.testing.assert_array_equal(xs_all[i], xs)
+        np.testing.assert_array_equal(up_all[i], up)
+        assert nv[i] == n_valid
+        if n_valid:
+            assert vmin[i] == xs[0] and vmax[i] == xs[n_valid - 1]
 
 
 def _presort_table(n, seed=3):
@@ -278,13 +314,12 @@ def _presort_table(n, seed=3):
                      wide], 1)
 
 
-def _host_presort(sample, part, size):
-    """``_presort_pairs_host`` on the pairs ``part`` with the host ranks,
-    lanes past them zero and invalid."""
+def _host_presort(sample, part):
+    """``_presort_pairs_host`` on the pairs ``part`` with the host ranks."""
     nn = np.nan_to_num(sample, nan=0.0).T
     nan = np.isnan(sample).T
     ranks = _column_ranks(nn.T)
-    x = np.zeros((size, nn.shape[1]))
+    x = np.zeros((len(part), nn.shape[1]))
     y = np.zeros_like(x)
     rx = np.zeros(x.shape, np.int64)
     ry = np.zeros_like(rx)
@@ -303,40 +338,34 @@ def _assert_bits_equal(got, want, name):
     np.testing.assert_array_equal(got, want, err_msg=name)
 
 
-def _check_device_presort(sample, part, size, device):
+def _check_device_presort(sample, part, device):
     cols, nanm, ranks = _upload_sample(sample, device, _NO_TIMELINE)
-    got = _presort_group(part, size, cols, nanm, ranks, device,
-                         _NO_TIMELINE)
-    want_ranks, want = _host_presort(sample, part, size)
+    got = _presort_group(part, cols, nanm, ranks, device, _NO_TIMELINE)
+    want_ranks, want = _host_presort(sample, part)
     _assert_bits_equal(ranks, want_ranks, "ranks")
     for name, g, w in zip("xo1 yo1 vo1 new1 xo2 yo2 vo2 new2".split(),
                           got, want):
         _assert_bits_equal(g, w, name)
 
 
-@pytest.mark.parametrize("part, size", [
-    (_pair_keys(6), 15),          # every pair: one compacting group
-    (_pair_keys(6)[:1], 1),       # a group of one pair
-    ([(2, 3)], 1),                # -0.0 and 0.0 against an all-NaN column
-    (_pair_keys(6)[5:8], 4),      # a fixed chunk padded to a power of two
+@pytest.mark.parametrize("part", [
+    _pair_keys(6),                # every pair: one compacting group
+    _pair_keys(6)[:1],            # a group of one pair
+    [(2, 3)],                     # -0.0 and 0.0 against an all-NaN column
 ])
-def test_device_presort_matches_host_presort(part, size):
+def test_device_presort_matches_host_presort(part):
     """The build's device presort (``_upload_sample``'s column ranks,
     ``_presort_group``'s gathers and composite-key sorts) is the host
     oracle's (``_column_ranks``, ``_presort_pairs_host`` with ranks) bit
     for bit: ranks, all eight arrays and their dtypes."""
-    _check_device_presort(_presort_table(3000), part, size, "cpu")
+    _check_device_presort(_presort_table(3000), part, "cpu")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_pairs, size", [
-    (32, 32),    # the benchmark cells' compacting group
-    (5, 8),      # a fixed chunk padded to a power of two
-])
-def test_cuda_device_presort_matches_host_presort(cuda, n_pairs, size):
+def test_cuda_device_presort_matches_host_presort(cuda):
     """The same on the card at the benchmark cells' group shape (32 pairs
-    of 100,000 rows) and for a padded fixed chunk of that length."""
+    of 100,000 rows)."""
     sample = np.concatenate([_presort_table(100_000, seed=s)
                              for s in (4, 5)], 1)
-    part = _pair_keys(sample.shape[1])[:n_pairs]
-    _check_device_presort(sample, part, size, cuda)
+    part = _pair_keys(sample.shape[1])[:32]
+    _check_device_presort(sample, part, cuda)

@@ -88,6 +88,23 @@ def test_ingest_compressed_matches_reference(small_table):
     assert port.query(sql).as_tuple() == ref.query(sql).as_tuple()
 
 
+def test_ingest_compressed_timings_are_ingests(frameworks):
+    """Both ingest paths publish the same build timings; the raw ingest
+    adds only its span tree."""
+    from repro_torch.gd.greedygd import GreedyGD
+    _ref, port = frameworks
+    fw = AQPFramework(BuildParams(n_samples=4000, seed=3), device="cpu")
+    fw.ingest_compressed(GreedyGD().compress(port.preprocessed.data),
+                         port.preprocessed.columns)
+    t = fw.timings
+    assert set(t) <= set(port.timings)
+    assert set(port.timings) - set(t) == {"ingest_timeline",
+                                          "ingest_phase_s", "ingest_counts"}
+    assert t["preprocess_s"] == t["compress_s"] == 0.0
+    assert t["build_synopsis_s"] > 0 and t["build_pair_mode"] == "compact"
+    assert t["build_from_compressed"] is True
+
+
 def test_storage_reports_wait_for_the_codec(frameworks):
     """The codec is ported: the storage report and synopsis size are the
     reference's on the same table (the synopses are bit-identical)."""

@@ -234,14 +234,12 @@ def test_build_timeline_and_phase_summary(framework):
 @pytest.mark.parametrize("scheduler, over, spans", [
     ("compact", {}, ("pair_presort", "pair_upload", "compact_launch",
                      "pair_metadata")),
-    ("batched", {"compact_drain": False},
-     ("pair_presort", "pair_upload", "batched_launch")),
 ])
 def test_pair_phase_spans_split_the_pair_phase(scheduler, over, spans):
-    """The batched schedulers time the upload of the sample's columns,
-    their device presort, their launches and (compacting) their metadata
-    as child spans of the pair phase, apart from one another; the launches
-    count the host's reads of the device and the upload its two copies."""
+    """The compacting scheduler times the upload of the sample's columns,
+    its device presort, its launches and its metadata as child spans of
+    the pair phase, apart from one another; the launches count the host's
+    reads of the device and the upload its two copies."""
     from repro_torch.core.build import build_pairwise_hist
     from repro_torch.core.types import ColumnInfo
     data = np.stack(list(_table().values()), 1)
