@@ -190,7 +190,14 @@ Phases, each printing one JSON line:
                ``"cuda"`` mode), each passing its own gates and launching
                its kernels (K1 from the servers' waves, K2 from single
                AND queries, K3/K4 from the GD lane's builds), with its
-               wall time; then ``examples/torch_quickstart.py``.
+               wall time; then ``examples/torch_quickstart.py``;
+ 14. greedygd — ``GreedyGD(device="cuda")`` on the rolling month
+               (494,233 rows of 31 ``flights_day`` days) and 500,000 rows
+               of ``flights`` and ``power`` (``aqpbench/tables``) against
+               the same code on the CPU: every ``CompressedTable`` field
+               equal with its dtype and shape, each span's seconds
+               (``gd_missing``, ``gd_plan``, ``gd_encode``) on both sides
+               and the card's peak allocated bytes over a compress.
 Then it prints the card line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 the last line. Without a CUDA device, or outside a checkout of the
@@ -2967,6 +2974,93 @@ def phase_lanes() -> list:
     return outs
 
 
+# -------------------------------------------------------------- phase 14
+
+# The greedygd phase's tables: the rolling month (31 days of 15,943 rows, as
+# the benchmark's ``flights_rolling`` holds) and 500,000 rows of the
+# benchmark's ``flights`` and ``power``, each drawn from a seed of its own.
+GD_MONTH_DAYS, GD_DAY_ROWS, GD_ROWS = 31, 15_943, 500_000
+GD_FIELDS = ("bases", "base_ids", "base_bits", "total_bits", "null_mask",
+             "sentinels")
+
+
+def _gd_tables() -> dict:
+    """The greedygd phase's pre-processed matrices by name."""
+    import numpy as np
+    from aqpbench.tables import flights, flights_day, power
+    from repro_torch.gd.preprocess import preprocess_table
+    days = [flights_day.make(GD_DAY_ROWS, 35_000 + j, j)
+            for j in range(GD_MONTH_DAYS)]
+    month = {k: np.concatenate([d[k] for d in days]) for k in days[0]}
+    return {"rolling_month": preprocess_table(month).data,
+            "flights": preprocess_table(flights.make(GD_ROWS, 35_100)).data,
+            "power": preprocess_table(power.make(GD_ROWS, 35_200)).data}
+
+
+def _gd_run(gd, data) -> tuple:
+    """``gd.compress(data)`` on a timeline of its own: the table, each
+    span's seconds and the counters' totals."""
+    from repro_torch.obs.timeline import BuildTimeline
+    tl = BuildTimeline()
+    with tl.phase("gd_compress"):
+        ct = gd.compress(data)
+    return ct, tl.summary(), tl.totals()
+
+
+def compressed_diffs(a, b) -> list:
+    """The ``CompressedTable`` fields in which two tables differ in value,
+    dtype or shape."""
+    import numpy as np
+
+    def same(x, y):
+        return (x.dtype, x.shape) == (y.dtype, y.shape) and \
+            np.array_equal(x, y)
+    diffs = [f for f in GD_FIELDS if not same(getattr(a, f), getattr(b, f))]
+    if len(a.deviations) != len(b.deviations) or \
+            not all(map(same, a.deviations, b.deviations)):
+        diffs.append("deviations")
+    return diffs
+
+
+def phase_greedygd() -> list:
+    """GreedyGD on the card against the same code on this machine's CPU,
+    which the CPU tests hold bit for bit against the reference package:
+    the fields apart (none may be), each span's seconds on both sides (the
+    card's from its second run) and the card's peak allocated bytes over
+    a compress."""
+    import torch
+    from repro_torch.gd.greedygd import GreedyGD
+    card, oracle = GreedyGD(device="cuda"), GreedyGD(device="cpu")
+    t_phase = time.perf_counter()
+    outs, bad = [], []
+    for name, data in _gd_tables().items():
+        _gd_run(card, data)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, spans, counts = _gd_run(card, data)
+        peak = torch.cuda.max_memory_allocated() - base
+        want, oracle_spans, _ = _gd_run(oracle, data)
+        diffs = compressed_diffs(got, want)
+        out = {"phase": "greedygd", "table": name, "rows": data.shape[0],
+               "d": data.shape[1], "bases": got.bases.shape[0],
+               "base_bits": got.base_bits.tolist(),
+               "total_bits": int(got.total_bits.sum()),
+               "card_s": spans, "cpu_s": oracle_spans,
+               "card_counts": counts, "card_peak_bytes": peak,
+               "peak_bytes_per_cell": peak / data.size,
+               "mismatched_fields": diffs}
+        emit(out)
+        outs.append(out)
+        if diffs:
+            bad.append(f"{name}: {diffs}")
+    emit({"phase": "greedygd", "seconds": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"greedygd phase failed: {bad}")
+    return outs
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3003,6 +3097,7 @@ def main(argv=None) -> int:
         cases = cases + train_cases
         phase_sharding(info["nvidia_smi"], train_out)
         lanes = phase_lanes()
+        phase_greedygd()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

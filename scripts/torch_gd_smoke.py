@@ -70,7 +70,7 @@ def main(argv=None) -> int:
 
 def _run(dev, mode: str) -> int:
     pp = preprocess_table(_table())
-    ct = GreedyGD().compress(pp.data)
+    ct = GreedyGD(device=dev).compress(pp.data)
     ratio = ct.raw_size_bytes() / ct.size_bytes()
     if ratio <= 1.0:
         print(f"FAIL: compression ratio {ratio:.3f} <= 1")

@@ -55,7 +55,7 @@ class AQPFramework:
         self.device = resolve_device(device)
         self.use_compression = use_compression
         self.fastpath = fastpath
-        self.gd = GreedyGD()
+        self.gd = GreedyGD(device=self.device)
         self.compressed = None
         self.preprocessed = None
         self.synopsis = None

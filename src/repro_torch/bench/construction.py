@@ -183,7 +183,7 @@ def _run_gd(rows: list, out: dict, sizes: dict, rng, dev):
     # N_s < n so rows_decoded reflects a sample-only decode, not a full pass.
     params = BuildParams(n_samples=min(n // 2, 50_000))
 
-    ct = GreedyGD().compress(data)
+    ct = GreedyGD(device=dev).compress(data)
     ratio = ct.raw_size_bytes() / ct.size_bytes()
 
     build_pairwise_hist(ct, cols, params, device=dev)       # warm

@@ -35,10 +35,12 @@ the profiler's own event list and in any trace it exports.
 (``merge``, ``preprocess``, ``gd_compress``, ``build``); pre-processing and
 GreedyGD open their children (``preprocess_categorical`` /
 ``preprocess_numeric`` a column; ``gd_missing``, ``gd_plan``,
-``gd_encode``) and count (``preprocess_rows``, ``gd_rows_encoded``,
-``gd_bases``) through ``span`` and ``count``, which act on the current
-timeline and do nothing where none is current. The build inside keeps its
-own timeline in ``build_stats``.
+``gd_encode``) and count (``preprocess_rows``, ``preprocess_str_rows``,
+``gd_rows_encoded``, ``gd_plan_steps``, ``gd_bases``) through ``span`` and
+``count``, which act on the current timeline and do nothing where none is
+current; GreedyGD's transfers count there too (``h2d_copies``,
+``h2d_bytes``, ``d2h_reads``). The build inside keeps its own timeline in
+``build_stats``.
 """
 from __future__ import annotations
 

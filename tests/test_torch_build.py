@@ -130,7 +130,7 @@ def test_compressed_input_bit_identical(small_table):
     pp_r = ref_preprocess(small_table)
     ct_r = RefGD().compress(pp_r.data)
     pp = preprocess_table(small_table)
-    ct = GreedyGD().compress(pp.data)
+    ct = GreedyGD(device="cpu").compress(pp.data)
     np.testing.assert_array_equal(ct.bases, ct_r.bases)
     np.testing.assert_array_equal(ct.base_ids, ct_r.base_ids)
     ref = ref_build(ct_r, pp_r.columns, RefParams(n_samples=10_000, seed=3))

@@ -81,7 +81,7 @@ def test_ingest_compressed_matches_reference(small_table):
         RefGD().compress(pp_r.data), pp_r.columns)
     port = AQPFramework(BuildParams(n_samples=6000, seed=3),
                         device="cpu").ingest_compressed(
-        GreedyGD().compress(pp.data), pp.columns)
+        GreedyGD(device="cpu").compress(pp.data), pp.columns)
     assert port.preprocessed is None and port.timings["build_from_compressed"]
     assert_same_synopsis(ref.synopsis, port.synopsis)
     sql = "SELECT COUNT(*) FROM t WHERE c1 > 300"
@@ -94,8 +94,9 @@ def test_ingest_compressed_timings_are_ingests(frameworks):
     from repro_torch.gd.greedygd import GreedyGD
     _ref, port = frameworks
     fw = AQPFramework(BuildParams(n_samples=4000, seed=3), device="cpu")
-    fw.ingest_compressed(GreedyGD().compress(port.preprocessed.data),
-                         port.preprocessed.columns)
+    fw.ingest_compressed(
+        GreedyGD(device="cpu").compress(port.preprocessed.data),
+        port.preprocessed.columns)
     t = fw.timings
     assert set(t) <= set(port.timings)
     assert set(port.timings) - set(t) == {"ingest_timeline",

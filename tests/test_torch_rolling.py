@@ -152,7 +152,8 @@ def test_direct_ingest_drops_pending_appends_and_expiry(direct):
         _assert_same_ingest(fw, _framework().ingest(days[2]))
         return
     pp = fw.preprocessed
-    fw.ingest_compressed(GreedyGD().compress(pp.data), pp.columns)
+    fw.ingest_compressed(GreedyGD(device="cpu").compress(pp.data),
+                         pp.columns)
     with pytest.raises(ValueError, match="no raw table"):
         fw.rebuild()
     fw.append_rows(days[2])
@@ -173,8 +174,9 @@ def test_retention_rejects_what_it_cannot_do():
     with pytest.raises(ValueError, match="expire"):
         fw.expire_rows(2)
     cold = _framework()
-    cold.ingest_compressed(GreedyGD().compress(fw.preprocessed.data),
-                           fw.preprocessed.columns)
+    cold.ingest_compressed(
+        GreedyGD(device="cpu").compress(fw.preprocessed.data),
+        fw.preprocessed.columns)
     with pytest.raises(ValueError, match="no raw table"):
         cold.rebuild()
 
@@ -228,15 +230,50 @@ def test_ingest_span_tree_and_counters():
                    for ev in fw.synopsis.build_stats["timeline"])
 
 
+GD_SPANS = ["gd_missing", "gd_plan", "gd_encode"]
+
+
+@pytest.mark.parametrize("days,search_rows", [(2, None), (4, None),
+                                              (2, 500), (4, 500)])
+def test_gd_counts_its_device_work(days, search_rows):
+    """GreedyGD's transfers: the matrix uploaded once (``gd_missing``, one
+    read of the sentinels and maxima), one read a greedy step
+    (``gd_plan_steps``) and the search rows' upload where there are more
+    rows than ``search_rows`` (``gd_plan``), the shifts' upload, the count
+    of bases and four downloads (``gd_encode``): constants, whatever the
+    rows."""
+    from repro_torch.gd.greedygd import GreedyGD
+    fw = _framework()
+    if search_rows:
+        fw.gd = GreedyGD(search_rows=search_rows, device=fw.device)
+    fw.ingest(_concat([_day(800 + i) for i in range(days)]))
+    events = fw.timings["ingest_timeline"]
+    gd = {ev["name"]: ev.get("counts", {}) for ev in events
+          if ev["name"].startswith("gd_") and ev["name"] != "gd_compress"}
+    assert [ev["name"] for ev in events if ev["name"] in gd] == GD_SPANS
+    d = fw.preprocessed.d
+    steps = gd["gd_plan"]["gd_plan_steps"]
+    assert steps >= 1
+    assert gd["gd_plan"]["d2h_reads"] == steps
+    assert gd["gd_plan"]["h2d_copies"] == (2 if search_rows else 1)
+    assert gd["gd_missing"] == {"h2d_copies": 1, "d2h_reads": 1,
+                                "h2d_bytes": days * DAY * d * 8}
+    assert gd["gd_encode"] == {"h2d_copies": 1, "h2d_bytes": d * 8,
+                               "d2h_reads": 5}
+    counts = fw.timings["ingest_counts"]
+    assert counts["gd_plan_steps"] == steps
+    assert counts["h2d_copies"] == (4 if search_rows else 3)
+
+
 def test_gd_and_preprocess_record_nothing_without_a_timeline():
     from repro_torch.gd.greedygd import GreedyGD
     from repro_torch.gd.preprocess import preprocess_table
     from repro_torch.obs.timeline import BuildTimeline
     pp = preprocess_table(_day(600))
-    GreedyGD().compress(pp.data)
+    GreedyGD(device="cpu").compress(pp.data)
     tl = BuildTimeline()
     with tl.phase("outer"):
-        GreedyGD().compress(pp.data)
+        GreedyGD(device="cpu").compress(pp.data)
     assert [ev["name"] for ev in tl.events] == [
         "outer", "gd_missing", "gd_plan", "gd_encode"]
     assert tl.totals()["gd_rows_encoded"] == DAY
